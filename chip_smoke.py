@@ -13,12 +13,28 @@ non-zero):
            64 sessions, 8 tenants, ragged 784-sample streams, 5-way 5-shot
            enrollment, poll; then chunk-size invariance (t_chunk 16 vs 1)
            and park/resume, bit-exact, for fp32 and quantized services;
-  fsl      5-way 1-shot and 5-shot episodes through protonet.adapt.
+  fsl      5-way 1-shot and 5-shot episodes through protonet.adapt;
+  ops      log2_matmul and dilated_conv (repro_torch.kernels.ops) against
+           their plain versions at every listed shape (TF32 off), the
+           identity decode and the conv's causality bit for bit, their
+           times beside torch.matmul / F.conv1d, then the ops entry point
+           driven as a user calls it (kernel_bench's matmul workloads, the
+           chameleon-tcn-audio forward with every conv through the op);
+  audio    chameleon-tcn-audio (12 blocks, d up to 2048): tcn_block at its
+           serve and enrollment shapes, 64 sessions streaming 1 s clips
+           16 samples per tick (every ring wraps) with 5-way 5-shot
+           enrollment, chunk-size invariance (t_chunk 16 vs 160 over
+           another ragged schedule) and park/resume bit-exact for fp32 and
+           quantized services, a 5-shot episode through protonet.adapt,
+           cone_eval against the dense forward, the Fig. 8(c) accounting,
+           and the push tick's latency and profile.
 
 Launch counters are zeroed just before each main-path drive and read just
-after.  Timings are medians of CUDA-event timed, warmed runs, except a
-kernel's ``ms``: its own device time per call, from torch.profiler (the
-event-timed wrapper call is ``wrapper_ms``).  The
+after.  Each phase prints its wall seconds.  Timings are medians of
+CUDA-event timed, warmed runs; a kernel's ``ms`` is its device time per
+call, from 20 calls captured in a CUDA graph and replayed (no host work
+between the kernels), while ``wrapper_ms`` times the Python wrapper call
+itself.  A push tick's breakdown comes from torch.profiler.  The
 second-to-last line is the kernels JSON, the last the device JSON.  Exits
 with code 2 and prints no result when no CUDA device is present.
 """
@@ -86,31 +102,38 @@ def time_ms(fn, dev, n: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, kernels: tuple[str, ...], n: int = 20) -> float:
-    """Device time (ms) per call of ``fn`` spent in the named CUDA kernels,
-    from torch.profiler's device events over ``n`` warmed calls.  Raises
-    unless each named kernel ran exactly once per call."""
+def device_ms(fn, dev, n: int = 20, reps: int = 5) -> float:
+    """Device time (ms) per call of ``fn``, which launches kernels and does
+    no host sync: ``n`` calls captured in one CUDA graph, the graph replayed
+    between CUDA events (no host work between its kernels), the median of
+    ``reps`` replays over ``n``."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    if dev.type != "cuda":
+        return float("nan")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
         for _ in range(n):
             fn()
-        torch.cuda.synchronize()
-    total = 0.0
-    for name in kernels:
-        evs = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and f"{name}(" in e.key]
-        count = sum(e.count for e in evs)
-        if count != n:
-            raise AssertionError(f"profiler saw {name} {count} times in "
-                                 f"{n} calls")
-        total += sum(e.self_device_time_total for e in evs)
-    return total / 1e3 / n
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    del graph
+    return statistics.median(times)
 
 
 # ---------------------------------------------------------------------------
@@ -126,22 +149,23 @@ def block_shapes(cfg):
     return out
 
 
-def block_inputs(rng, S, T, d, Cin, C, k, has_down, packed, dev):
-    """Random strips and one block's weights (fp32 or packed log2)."""
+def block_inputs(g, S, T, d, Cin, C, k, has_down, packed, dev):
+    """Random strips and one block's weights (fp32 or packed log2), drawn on
+    the device from the torch.Generator ``g``."""
     import torch
     from repro_torch.models.tcn import _bake_weight
 
     n = (k - 1) * d
-    t = lambda a: torch.from_numpy(a.astype("float32")).to(dev)
-    strip1 = t(rng.normal(size=(S, n + T, Cin)))
-    hist2 = t(rng.normal(size=(S, n, C)))
-    p = {"conv1_w": t(rng.normal(size=(k, Cin, C)) * (Cin * k) ** -0.5),
-         "conv1_b": t(rng.normal(size=(C,)) * 0.1),
-         "conv2_w": t(rng.normal(size=(k, C, C)) * (C * k) ** -0.5),
-         "conv2_b": t(rng.normal(size=(C,)) * 0.1)}
+    t = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    strip1 = t(S, n + T, Cin)
+    hist2 = t(S, n, C)
+    p = {"conv1_w": t(k, Cin, C) * (Cin * k) ** -0.5,
+         "conv1_b": t(C) * 0.1,
+         "conv2_w": t(k, C, C) * (C * k) ** -0.5,
+         "conv2_b": t(C) * 0.1}
     if has_down:
-        p["down_w"] = t(rng.normal(size=(1, Cin, C)) * Cin ** -0.5)
-        p["down_b"] = t(rng.normal(size=(C,)) * 0.1)
+        p["down_w"] = t(1, Cin, C) * Cin ** -0.5
+        p["down_b"] = t(C) * 0.1
     if packed:
         for w in ("conv1_w", "conv2_w", "down_w"):
             if w in p:
@@ -161,10 +185,9 @@ def block_work(S, T, d, Cin, C, k, has_down, packed):
     return nbytes, flops
 
 
-def compare(name, got, want, quantized: bool) -> float:
-    """Raise unless ``got`` matches ``want``; returns the max abs error.
-    fp32: |got-want| <= ATOL + RTOL*|want|.  Quantized: >= 99.9% of the
-    elements bit-equal and the rest within one u4 step."""
+def allclose(name, got, want, rtol, atol) -> float:
+    """Raise unless |got-want| <= atol + rtol*|want| everywhere; returns
+    the max abs error."""
     import torch
 
     if got.shape != want.shape:
@@ -172,14 +195,30 @@ def compare(name, got, want, quantized: bool) -> float:
                              f"{tuple(want.shape)}")
     if not torch.isfinite(got).all():
         raise AssertionError(f"{name}: non-finite output")
-    err = (got - want).abs()
-    if quantized:
-        eq = (got == want).float().mean().item()
-        if eq < 0.999 or err.max().item() > QUANT_STEP * (1 + 1e-6):
-            raise AssertionError(f"{name}: {eq:.5f} bit-equal, max err "
-                                 f"{err.max().item():.3g}")
-    elif not (err <= ATOL + RTOL * want.abs()).all():
+    err = (got.float() - want.float()).abs()
+    if not (err <= atol + rtol * want.abs()).all():
         raise AssertionError(f"{name}: max abs err {err.max().item():.3g}")
+    return err.max().item()
+
+
+def compare(name, got, want, quantized: bool) -> float:
+    """Raise unless ``got`` matches ``want``; returns the max abs error.
+    fp32: |got-want| <= ATOL + RTOL*|want|.  Quantized: >= 99.9% of the
+    elements bit-equal and the rest within one u4 step."""
+    import torch
+
+    if not quantized:
+        return allclose(name, got, want, RTOL, ATOL)
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} != "
+                             f"{tuple(want.shape)}")
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite output")
+    err = (got - want).abs()
+    eq = (got == want).float().mean().item()
+    if eq < 0.999 or err.max().item() > QUANT_STEP * (1 + 1e-6):
+        raise AssertionError(f"{name}: {eq:.5f} bit-equal, max err "
+                             f"{err.max().item():.3g}")
     return err.max().item()
 
 
@@ -187,11 +226,12 @@ def compare(name, got, want, quantized: bool) -> float:
 # phase: kernels
 # ---------------------------------------------------------------------------
 
-def phase_kernels(cfg, dev, seed: int = 0,
+def phase_kernels(cfg, dev, seed: int = 0, embed_t: int = STREAM_LEN,
                   ts=(1, 2, 4, 8, T_CHUNK, STREAM_LEN)):
     """Every shape the main path gives a kernel: serve ticks of T_CHUNK and
     the power-of-two buckets of ragged remainders (S=64), the enrollment
-    embeds of one way's shots (S=5) and a 5-shot episode (S=25)."""
+    embeds of one way's shots (S=5) and a 5-shot episode (S=25), whose
+    clips are ``embed_t`` long."""
     import numpy as np
     import torch
     from repro_torch.kernels.proto_extract import proto_extract
@@ -199,16 +239,17 @@ def phase_kernels(cfg, dev, seed: int = 0,
     from repro_torch.kernels.tcn_block import tcn_block
 
     rng = np.random.default_rng(seed)
+    g = torch.Generator(device=dev).manual_seed(seed)
     k, errs = cfg.tcn_kernel, {"tcn_block": 0.0, "proto_extract": 0.0}
     n_cases = 0
     for (i, d, Cin, C, has_down) in block_shapes(cfg):
         for (S, T) in [(s, t) for t in ts for s in (
-                (K_SHOTS, N_WAYS * K_SHOTS) if t == STREAM_LEN
+                (K_SHOTS, N_WAYS * K_SHOTS) if t == embed_t
                 else (N_SLOTS,))]:
             for packed in (False, True):
                 for quantize in (False, True):
                     strip1, hist2, p = block_inputs(
-                        rng, S, T, d, Cin, C, k, has_down, packed, dev)
+                        g, S, T, d, Cin, C, k, has_down, packed, dev)
                     h, mid = tcn_block(strip1, hist2, p, dilation=d, k=k,
                                        act_scale=cfg.act_scale,
                                        quantize=quantize)
@@ -240,14 +281,16 @@ def phase_kernels(cfg, dev, seed: int = 0,
                                     compare(tag + " W", w, wr, False),
                                     compare(tag + " b", b, br, False))
         n_cases += 1
-    log(f"kernels: {n_cases} cases agree with the plain versions; "
+    log(f"kernels {cfg.name}: {n_cases} cases agree with the plain versions; "
         f"max abs err tcn_block={errs['tcn_block']:.3g} "
         f"proto_extract={errs['proto_extract']:.3g}")
     return errs
 
 
-def phase_timings(cfg, dev, seed: int = 1):
-    """Per-shape kernel / plain / library times at the main-path shapes."""
+def phase_timings(cfg, dev, seed: int = 1, embed_t: int = STREAM_LEN):
+    """Per-shape kernel / plain / library times at the main-path shapes:
+    the serve tick (S=64, T=16) and a 5-shot episode's embeds (S=25,
+    T=``embed_t``) of every block, and one proto_extract."""
     import numpy as np
     import torch
     from repro_torch.kernels.proto_extract import proto_extract
@@ -255,21 +298,23 @@ def phase_timings(cfg, dev, seed: int = 1):
     from repro_torch.kernels.tcn_block import tcn_block
 
     rng = np.random.default_rng(seed)
+    g = torch.Generator(device=dev).manual_seed(seed)
     k = cfg.tcn_kernel
     tick = {"ms": 0.0, "wrapper_ms": 0.0, "plain_ms": 0.0, "bytes": 0.0,
             "flops": 0.0}
     for (i, d, Cin, C, has_down) in block_shapes(cfg):
-        for (S, T) in ((N_SLOTS, T_CHUNK), (N_WAYS * K_SHOTS, STREAM_LEN)):
-            strip1, hist2, p = block_inputs(rng, S, T, d, Cin, C, k,
+        for (S, T) in ((N_SLOTS, T_CHUNK), (N_WAYS * K_SHOTS, embed_t)):
+            strip1, hist2, p = block_inputs(g, S, T, d, Cin, C, k,
                                             has_down, False, dev)
             call = lambda: tcn_block(strip1, hist2, p, dilation=d, k=k)
             wrapper = time_ms(call, dev)
-            ms = device_ms(call, ("conv1_kernel", "conv2_kernel"))
+            ms = device_ms(call, dev)
             plain = time_ms(lambda: tcn_block_fused(
                 strip1, hist2, p, dilation=d, k=k), dev)
             nb, fl = block_work(S, T, d, Cin, C, k, has_down, False)
             bms, by = bound(nb, fl)
-            log(f"timing tcn_block b{i} d={d} Cin={Cin} S={S} T={T} fp32: "
+            log(f"timing tcn_block {cfg.name} b{i} d={d} Cin={Cin} S={S} "
+                f"T={T} fp32: "
                 f"ms={ms:.4f} wrapper_ms={wrapper:.4f} "
                 f"plain_ms={plain:.4f} bound_ms={bms:.6f} "
                 f"bound_by={by} library_ms=null")
@@ -280,7 +325,8 @@ def phase_timings(cfg, dev, seed: int = 1):
                 tick["bytes"] += nb
                 tick["flops"] += fl
     tb_bound, tb_by = bound(tick["bytes"], tick["flops"])
-    log(f"timing tcn_block serve tick (7 blocks, S={N_SLOTS}, T={T_CHUNK}): "
+    log(f"timing tcn_block {cfg.name} serve tick "
+        f"({len(cfg.tcn_channels)} blocks, S={N_SLOTS}, T={T_CHUNK}): "
         f"ms={tick['ms']:.4f} wrapper_ms={tick['wrapper_ms']:.4f} "
         f"plain_ms={tick['plain_ms']:.4f} bound_ms={tb_bound:.6f} "
         f"bound_by={tb_by}")
@@ -292,7 +338,7 @@ def phase_timings(cfg, dev, seed: int = 1):
         (labels[None, :] == np.arange(N_WAYS)[:, None]).astype("float32")).to(dev)
     call = lambda: proto_extract(emb, onehot, K_SHOTS)
     pe = {
-        "ms": device_ms(call, ("proto_extract_kernel",)),
+        "ms": device_ms(call, dev),
         "wrapper_ms": time_ms(call, dev),
         "plain_ms": time_ms(lambda: proto_extract_ref(emb, onehot, K_SHOTS),
                             dev),
@@ -342,25 +388,29 @@ def make_model(cfg, dev, seed: int = 0):
     return bundle, params, bn
 
 
-def make_schedule(rng, n_sessions: int, length: int, max_chunk: int = 48):
+def make_schedule(rng, n_sessions: int, length: int, max_chunk: int = 48,
+                  min_chunk: int = 1):
     """Ragged push rounds: per round, each unfinished session gets a chunk
-    of 1..max_chunk samples, until every stream has ``length``."""
+    of min_chunk..max_chunk samples, until every stream has ``length``."""
     pos = [0] * n_sessions
     rounds = []
     while min(pos) < length:
         r = {}
         for s in range(n_sessions):
             if pos[s] < length:
-                n = int(min(rng.integers(1, max_chunk + 1), length - pos[s]))
+                n = int(min(rng.integers(min_chunk, max_chunk + 1),
+                             length - pos[s]))
                 r[s] = (pos[s], pos[s] + n)
                 pos[s] += n
         rounds.append(r)
     return rounds
 
 
-def drive(svc, audio, schedule, shots, *, park_every: int = 0):
+def drive(svc, audio, schedule, shots, *, park_every: int = 0,
+          enroll_round: int = 1):
     """open 64 sessions over 8 tenants, stream the schedule, enroll 5-way
-    5-shot on tenant 0 after the first round, poll; returns every session's outputs.
+    5-shot on tenant 0 before round ``enroll_round``, poll; returns every
+    session's outputs.
     ``park_every`` > 0 parks a rotating fifth of the sessions every that
     many rounds and fills the freed slots with short-lived sessions, so
     parked sessions resume through evictions, in other slots."""
@@ -371,7 +421,7 @@ def drive(svc, audio, schedule, shots, *, park_every: int = 0):
     outs = {s: [] for s in range(audio.shape[0])}
     fillers = []
     for r, rnd in enumerate(schedule):
-        if r == 1:
+        if r == enroll_round:
             for way in range(N_WAYS):
                 svc.enroll_shots(sids[0], shots[way])
         if park_every and r % park_every == park_every - 1:
@@ -583,6 +633,455 @@ def phase_fsl(cfg, dev, seed: int = 2, stream_len: int = STREAM_LEN):
 
 
 # ---------------------------------------------------------------------------
+# phase: ops (log2_matmul and dilated_conv, repro_torch.kernels.ops)
+# ---------------------------------------------------------------------------
+
+# (M, K, N): benchmarks/kernel_bench.py's full and smoke sizes, two decode
+# shapes, and tests/test_kernels.py's shapes with ragged tiles
+MATMUL_SHAPES = ((256, 2048, 2048), (64, 256, 256), (1, 2048, 2048),
+                 (16, 2048, 8192), (100, 64, 130), (1, 256, 64), (8, 32, 16))
+# tests/test_kernels.py's tolerances: log2_matmul fp32 (bf16 x is upcast
+# exactly on both sides, so the fp32 one applies), dilated_conv
+MATMUL_RTOL, MATMUL_ATOL = 1e-4, 1e-3
+CONV_RTOL = CONV_ATOL = 1e-4
+# tests/test_kernels.py's conv shapes (B, T, Cin, Cout, K, d); the last has
+# T < (K-1)*d
+CONV_TEST_SHAPES = ((2, 37, 4, 8, 3, 1), (3, 128, 16, 32, 7, 4),
+                    (1, 200, 8, 100, 2, 16), (2, 64, 28, 24, 3, 2),
+                    (2, 20, 4, 100, 7, 8))
+AUDIO_B, AUDIO_LEN = 8, 16_000  # whole 1 s clips at 16 kHz
+
+
+def packed_weight(rng, K, N, dev):
+    """(codes (K, N/2) uint8, scale ()) of a random (K, N) weight."""
+    import torch
+    from repro_torch.models.tcn import _bake_weight
+
+    w = torch.from_numpy((rng.normal(size=(K, N)) * 0.05).astype("float32"))
+    p = _bake_weight(w, True)[1]
+    return p["codes"].to(dev), p["scale"].to(dev)
+
+
+def conv_shapes(cfg, B, T):
+    """(name, B, T, Cin, Cout, K, d) of every conv of the TCN forward."""
+    out, c_in, k = [], cfg.tcn_in_channels, cfg.tcn_kernel
+    for i, c in enumerate(cfg.tcn_channels):
+        d = 2 ** i
+        out.append((f"b{i}.conv1", B, T, c_in, c, k, d))
+        out.append((f"b{i}.conv2", B, T, c, c, k, d))
+        if c_in != c:
+            out.append((f"b{i}.down", B, T, c_in, c, 1, 1))
+        c_in = c
+    return out
+
+
+def conv_inputs(rng, B, T, Cin, Cout, K, dev):
+    import torch
+
+    t = lambda a: torch.from_numpy(a.astype("float32")).to(dev)
+    return (t(rng.normal(size=(B, T, Cin))),
+            t(rng.normal(size=(K, Cin, Cout)) * (K * Cin) ** -0.5),
+            t(rng.normal(size=(Cout,)) * 0.1))
+
+
+def matmul_work(M, K, N, x_bytes):
+    """(bytes, flops) of one log2_matmul: x, packed W and the scale in,
+    the fp32 output out."""
+    return M * K * x_bytes + K * N // 2 + 4 + M * N * 4, 2 * M * K * N
+
+
+def conv_work(B, T, Cin, Cout, K):
+    """(bytes, flops) of one dilated_conv."""
+    return ((B * T * (Cin + Cout) + K * Cin * Cout + Cout) * 4,
+            2 * B * T * K * Cin * Cout)
+
+
+def phase_ops(dev, audio_cfg, fsl_cfg, seed: int = 3):
+    """log2_matmul and dilated_conv against their plain versions at every
+    listed shape, the identity decode and the conv's causality bit for
+    bit."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.dilated_conv import dilated_conv
+    from repro_torch.kernels.log2_matmul import log2_matmul
+    from repro_torch.kernels.ref import dilated_conv_ref, log2_matmul_ref
+    from repro_torch.quant.log2 import dequantize_log2, unpack_nibbles
+
+    rng = np.random.default_rng(seed)
+    errs = {"log2_matmul": 0.0, "dilated_conv": 0.0}
+    n_cases = 0
+    for (M, K, N) in MATMUL_SHAPES:
+        codes, scale = packed_weight(rng, K, N, dev)
+        x32 = torch.from_numpy(rng.normal(size=(M, K)).astype("float32")).to(dev)
+        for x in (x32, x32.to(torch.bfloat16)):
+            got = log2_matmul(x, codes, scale)
+            want = log2_matmul_ref(x, codes, scale)
+            sync(dev)
+            errs["log2_matmul"] = max(errs["log2_matmul"], allclose(
+                f"log2_matmul {M}x{K}x{N} {x.dtype}", got, want,
+                MATMUL_RTOL, MATMUL_ATOL))
+            n_cases += 1
+    codes, scale = packed_weight(rng, 256, 256, dev)
+    got = log2_matmul(torch.eye(256, device=dev), codes, scale)
+    if not torch.equal(got, dequantize_log2(unpack_nibbles(codes), scale)):
+        raise AssertionError("log2_matmul: I @ W is not the decoded W bit "
+                             "for bit")
+    shapes = (conv_shapes(audio_cfg, AUDIO_B, AUDIO_LEN)
+              + conv_shapes(fsl_cfg, N_WAYS * K_SHOTS, STREAM_LEN)
+              + [("test", *sh) for sh in CONV_TEST_SHAPES])
+    for (name, B, T, Cin, Cout, K, d) in shapes:
+        x, w, b = conv_inputs(rng, B, T, Cin, Cout, K, dev)
+        got = dilated_conv(x, w, b, d)
+        want = dilated_conv_ref(x, w, b, d)
+        sync(dev)
+        errs["dilated_conv"] = max(errs["dilated_conv"], allclose(
+            f"dilated_conv {name} B={B} T={T} {Cin}->{Cout} K={K} d={d}",
+            got, want, CONV_RTOL, CONV_ATOL))
+        n_cases += 1
+    for (B, T, C, K, d, t0) in ((1, 32, 4, 3, 2, 20),
+                                (AUDIO_B, AUDIO_LEN, 24, 7, 2048,
+                                 AUDIO_LEN * 3 // 4)):
+        x, w, b = conv_inputs(rng, B, T, C, C, K, dev)
+        y1 = dilated_conv(x, w, b, d)
+        x2 = x.clone()
+        x2[:, t0:] = 123.0
+        y2 = dilated_conv(x2, w, b, d)
+        sync(dev)
+        if not torch.equal(y1[:, :t0], y2[:, :t0]):
+            raise AssertionError(f"dilated_conv d={d}: x[:, {t0}:] changed "
+                                 f"out[:, :{t0}]")
+        if torch.equal(y1[:, t0:], y2[:, t0:]):
+            raise AssertionError(f"dilated_conv d={d}: x[:, {t0}:] changed "
+                                 "nothing")
+    log(f"ops: {n_cases} cases agree with the plain versions (max abs err "
+        f"log2_matmul={errs['log2_matmul']:.3g}, dilated_conv="
+        f"{errs['dilated_conv']:.3g}); I @ W decodes bit for bit; the conv "
+        "is causal bit for bit (d=2 and d=2048)")
+    return errs
+
+
+def phase_ops_timings(dev, audio_cfg, seed: int = 4):
+    """Kernel / wrapper / plain / library times of log2_matmul at every
+    listed shape and of dilated_conv at every conv of the audio preset over
+    8 whole clips; the JSON gets the kernel_bench size and the sum over the
+    audio forward's convs."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.dilated_conv import dilated_conv
+    from repro_torch.kernels.log2_matmul import log2_matmul
+    from repro_torch.kernels.ref import dilated_conv_ref, log2_matmul_ref
+    from repro_torch.quant.log2 import dequantize_log2, unpack_nibbles
+
+    rng = np.random.default_rng(seed)
+    mm = None
+    for (M, K, N) in MATMUL_SHAPES:
+        codes, scale = packed_weight(rng, K, N, dev)
+        w = dequantize_log2(unpack_nibbles(codes), scale)
+        x32 = torch.from_numpy(rng.normal(size=(M, K)).astype("float32")).to(dev)
+        for x in (x32, x32.to(torch.bfloat16)):
+            call = lambda: log2_matmul(x, codes, scale)
+            row = {"ms": device_ms(call, dev),
+                   "wrapper_ms": time_ms(call, dev),
+                   "plain_ms": time_ms(
+                       lambda: log2_matmul_ref(x, codes, scale), dev),
+                   "library_ms": None}
+            if x.dtype == torch.float32:
+                # one PyTorch call on the decoded W; never used by the port
+                row["library_ms"] = time_ms(lambda: torch.matmul(x, w), dev)
+            nb, fl = matmul_work(M, K, N, x.element_size())
+            row["bound_ms"], row["bound_by"] = bound(nb, fl)
+            lib = "null" if row["library_ms"] is None \
+                else f"{row['library_ms']:.4f}"
+            log(f"timing log2_matmul {M}x{K}x{N} x={str(x.dtype)[6:]}: "
+                f"ms={row['ms']:.4f} wrapper_ms={row['wrapper_ms']:.4f} "
+                f"plain_ms={row['plain_ms']:.4f} library_ms={lib} "
+                f"bound_ms={row['bound_ms']:.6f} bound_by={row['bound_by']}")
+            if mm is None:  # the kernel_bench size, fp32 x
+                mm = row
+    tot = {"ms": 0.0, "wrapper_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+           "bytes": 0.0, "flops": 0.0}
+    convs = conv_shapes(audio_cfg, AUDIO_B, AUDIO_LEN)
+    for (name, B, T, Cin, Cout, K, d) in convs:
+        x, w, b = conv_inputs(rng, B, T, Cin, Cout, K, dev)
+        pad = (K - 1) * d
+        # the library call's operands, already padded and laid out
+        # (B, Cin, T+pad) and (Cout, Cin, K)
+        xl = F.pad(x, (0, 0, pad, 0)).transpose(1, 2).contiguous()
+        wl = w.permute(2, 1, 0).contiguous()
+        library = lambda: F.conv1d(xl, wl, b, dilation=d)
+        allclose(f"conv1d library call {name}",
+                 library().transpose(1, 2), dilated_conv(x, w, b, d),
+                 CONV_RTOL, CONV_ATOL)
+        call = lambda: dilated_conv(x, w, b, d)
+        row = {"ms": device_ms(call, dev),
+               "wrapper_ms": time_ms(call, dev),
+               "plain_ms": time_ms(lambda: dilated_conv_ref(x, w, b, d), dev),
+               "library_ms": time_ms(library, dev)}
+        nb, fl = conv_work(B, T, Cin, Cout, K)
+        bms, by = bound(nb, fl)
+        log(f"timing dilated_conv {audio_cfg.name} {name} B={B} T={T} "
+            f"{Cin}->{Cout} K={K} d={d}: ms={row['ms']:.4f} "
+            f"wrapper_ms={row['wrapper_ms']:.4f} "
+            f"plain_ms={row['plain_ms']:.4f} "
+            f"library_ms={row['library_ms']:.4f} bound_ms={bms:.6f} "
+            f"bound_by={by}")
+        for key in row:
+            tot[key] += row[key]
+        tot["bytes"] += nb
+        tot["flops"] += fl
+    cb, cby = bound(tot.pop("bytes"), tot.pop("flops"))
+    tot["bound_ms"], tot["bound_by"] = cb, cby
+    log(f"timing dilated_conv {audio_cfg.name} forward ({len(convs)} convs, "
+        f"B={AUDIO_B}, T={AUDIO_LEN}): ms={tot['ms']:.4f} "
+        f"wrapper_ms={tot['wrapper_ms']:.4f} plain_ms={tot['plain_ms']:.4f} "
+        f"library_ms={tot['library_ms']:.4f} bound_ms={cb:.6f} "
+        f"bound_by={cby}")
+    return mm, tot
+
+
+def conv_forward(params, bn, cfg, x, conv_op):
+    """models/tcn.tcn_forward (eval, fp32) with every conv through
+    ``conv_op``: the ops entry point driven as a whole network."""
+    import torch
+    from repro_torch.models.tcn import _bn
+
+    h = x
+    for i in range(len(cfg.tcn_channels)):
+        p, st, d = params["blocks"][f"b{i}"], bn[f"b{i}"], 2 ** i
+        y = conv_op(h, p["conv1_w"], p["conv1_b"], d)
+        y = torch.relu(_bn(y, p["bn1"]["scale"], p["bn1"]["bias"],
+                           st["bn1_mean"], st["bn1_var"]))
+        y = conv_op(y, p["conv2_w"], p["conv2_b"], d)
+        y = _bn(y, p["bn2"]["scale"], p["bn2"]["bias"], st["bn2_mean"],
+                st["bn2_var"])
+        res = conv_op(h, p["down_w"], p["down_b"], 1) if "down_w" in p else h
+        h = torch.relu(y + res)
+    emb = torch.relu(h[:, -1, :] @ params["head_w"] + params["head_b"])
+    return emb, emb @ params["fc"]["w"] + params["fc"]["b"]
+
+
+def scaled_close(name, got, want, rtol=2e-4, atol=2e-5) -> float:
+    """allclose at the repo's fp32 precedent with atol scaled by the
+    largest |want| (at least 1): the seeded, untrained nets' activations
+    reach far above 1, and two fp32 summation orders then differ by a few
+    ulps of that scale."""
+    return allclose(name, got, want, rtol,
+                    atol * max(1.0, want.abs().max().item()))
+
+
+def phase_ops_main(dev, audio_cfg, seed: int = 5):
+    """The ops entry point as a user calls it: kernel_bench's log2_matmul
+    workloads (bf16 x) and the audio preset's forward over 8 whole clips
+    with every conv through the conv op.  Counters are zeroed just before
+    and read just after."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import make_dilated_conv_op, make_log2_matmul_op
+    from repro_torch.kernels.dilated_conv import dilated_conv
+    from repro_torch.kernels.log2_matmul import log2_matmul
+    from repro_torch.kernels.ref import log2_matmul_ref
+    from repro_torch.models.tcn import tcn_forward
+
+    rng = np.random.default_rng(seed)
+    mm_op, conv_op = make_log2_matmul_op(), make_dilated_conv_op()
+    work = []
+    for (M, K, N) in MATMUL_SHAPES[:2]:
+        codes, scale = packed_weight(rng, K, N, dev)
+        x = torch.from_numpy(rng.normal(size=(M, K)).astype("float32")).to(
+            dev, torch.bfloat16)
+        work.append((x, codes, scale))
+    _, params, bn = make_model(audio_cfg, dev, seed)
+    clips = torch.from_numpy(rng.normal(
+        size=(AUDIO_B, AUDIO_LEN, audio_cfg.tcn_in_channels)
+    ).astype("float32")).to(dev)
+    log2_matmul.launches = dilated_conv.launches = 0
+    outs = [mm_op(*args) for args in work]
+    emb, logits = conv_forward(params, bn, audio_cfg, clips, conv_op)
+    sync(dev)
+    launches = {"log2_matmul": log2_matmul.launches,
+                "dilated_conv": dilated_conv.launches}
+    if 0 in launches.values():
+        raise AssertionError(f"ops: a kernel was not launched {launches}")
+    for out, args in zip(outs, work):
+        allclose("ops log2_matmul workload", out, log2_matmul_ref(*args),
+                 MATMUL_RTOL, MATMUL_ATOL)
+    de, dl = tcn_forward(params, bn, audio_cfg, clips)
+    err = max(scaled_close("ops conv forward emb", emb, de),
+              scaled_close("ops conv forward logits", logits, dl))
+    log(f"ops main path: 2 log2_matmul workloads and the "
+        f"{audio_cfg.name} forward over {AUDIO_B}x{AUDIO_LEN} samples "
+        f"through the conv op agree with the plain versions (forward max "
+        f"abs err {err:.3g}, |emb| up to {de.abs().max().item():.3g}); "
+        f"launches {launches}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase: audio (chameleon-tcn-audio served, enrolled and cone-evaluated)
+# ---------------------------------------------------------------------------
+
+AUDIO_BIG_CHUNK, AUDIO_PARK_EVERY = 160, 20
+
+
+def phase_audio(cfg, dev, seed: int = 6):
+    import numpy as np
+    import torch
+    from repro_torch.core.protonet import adapt, pn_fc_from_sums, support_sums
+    from repro_torch.core.streaming import (
+        cone_eval,
+        cone_stats,
+        ring_sizes,
+        stream_state_bytes,
+        ws_inference_stats,
+    )
+    from repro_torch.kernels.proto_extract import proto_extract
+    from repro_torch.kernels.tcn_block import tcn_block
+    from repro_torch.models.tcn import (
+        bake_stream_params,
+        make_fused_forward,
+        tcn_forward,
+    )
+    from repro_torch.sessions import StreamSessionService
+
+    rng = np.random.default_rng(seed)
+    bundle, params, bn = make_model(cfg, dev, seed)
+    c_in = cfg.tcn_in_channels
+    audio = rng.normal(size=(N_SLOTS, AUDIO_LEN, c_in)).astype(np.float32)
+    shots = rng.normal(size=(N_WAYS, K_SHOTS, AUDIO_LEN, c_in)
+                       ).astype(np.float32)
+    deepest = max(n for rs in ring_sizes(cfg).values()
+                  for (n, _) in rs.values())
+    if AUDIO_LEN <= deepest:
+        raise AssertionError(f"a {AUDIO_LEN}-sample stream does not wrap "
+                             f"the {deepest}-row ring")
+    # 9..16 samples a session per push, so one tick of 16 a round; then
+    # 1..320-sample pushes served in ticks of 160
+    small = make_schedule(rng, N_SLOTS, AUDIO_LEN, max_chunk=T_CHUNK,
+                          min_chunk=9)
+    big = make_schedule(rng, N_SLOTS, AUDIO_LEN,
+                        max_chunk=2 * AUDIO_BIG_CHUNK)
+
+    def service(quantize, t_chunk):
+        return StreamSessionService(
+            bundle, params, bn, n_slots=N_SLOTS, max_tenants=N_TENANTS,
+            max_ways=8, t_chunk=t_chunk, quantize=quantize, fused=True)
+
+    result = {"launches": 0}
+    for quantize in (False, True):
+        svc = service(quantize, T_CHUNK)
+        tcn_block.launches = proto_extract.launches = 0
+        t0 = time.perf_counter()
+        main, polls = drive(svc, audio, small, shots, enroll_round=0)
+        secs = time.perf_counter() - t0
+        launches = tcn_block.launches
+        result["launches"] += launches
+        if launches == 0:
+            raise AssertionError("audio: the main path launched no tcn_block")
+        for s, (e, lg, tl) in main.items():
+            if e.shape != (AUDIO_LEN, cfg.embed_dim) or \
+                    lg.shape != (AUDIO_LEN, cfg.n_classes):
+                raise AssertionError(f"audio: session {s} shapes {e.shape}, "
+                                     f"{lg.shape}")
+            for a in (e, lg) + ((tl[:, :N_WAYS],) if tl is not None else ()):
+                if not np.isfinite(a).all():
+                    raise AssertionError(f"audio: session {s} non-finite")
+        if not any(np.abs(lg).max() > 0 for _, lg, _ in main.values()):
+            raise AssertionError("audio: all logits are zero")
+        if polls[0]["n_ways"] != N_WAYS or main[0][2] is None \
+                or main[0][2].shape[0] != AUDIO_LEN:
+            raise AssertionError("audio: enrollment did not reach tenant 0")
+        if any(p["steps"] != AUDIO_LEN for p in polls):
+            raise AssertionError("audio: a session lost steps")
+        log(f"audio quantize={quantize}: {N_SLOTS} sessions x {AUDIO_LEN} "
+            f"samples in {len(small)} ragged rounds, {svc.dispatches} ticks "
+            f"of <= {T_CHUNK} in {secs:.1f} s, every ring wrapped (deepest "
+            f"{deepest} rows), tcn_block launches={launches}, enrolled "
+            f"{polls[0]['n_ways']} ways; outputs finite")
+        other_svc = service(quantize, AUDIO_BIG_CHUNK)
+        other, _ = drive(other_svc, audio, big, shots, enroll_round=0)
+        if not same_outputs(main, other):
+            raise AssertionError(f"audio quantize={quantize}: t_chunk "
+                                 f"{T_CHUNK} and {AUDIO_BIG_CHUNK} differ")
+        parked_svc = service(quantize, AUDIO_BIG_CHUNK)
+        parked, _ = drive(parked_svc, audio, big, shots, enroll_round=0,
+                          park_every=AUDIO_PARK_EVERY)
+        if not same_outputs(main, parked) or parked_svc.evictions == 0:
+            raise AssertionError(f"audio quantize={quantize}: park/resume "
+                                 f"changed the outputs ({parked_svc.evictions}"
+                                 " evictions)")
+        log(f"audio quantize={quantize}: chunk-size invariance (t_chunk "
+            f"{T_CHUNK} in {len(small)} rounds vs {AUDIO_BIG_CHUNK} in "
+            f"{len(big)} other ragged rounds, {other_svc.dispatches} ticks) "
+            f"and park/resume ({parked_svc.evictions} evictions) bit-exact")
+        del svc, other_svc, parked_svc
+        if not quantize:
+            tsvc = service(False, T_CHUNK)
+            sids = [tsvc.open_session() for _ in range(N_SLOTS)]
+            x = {sid: audio[i, :T_CHUNK] for i, sid in enumerate(sids)}
+            result["tick_ms"] = time_ms(lambda: tsvc.push_audio(x), dev)
+            log(f"timing audio push_audio tick ({N_SLOTS}x{T_CHUNK} samples, "
+                f"end to end): ms={result['tick_ms']:.4f}")
+            if dev.type == "cuda":
+                profile_tick(lambda: tsvc.push_audio(x))
+            del tsvc
+    # 5-way 5-shot enrollment of whole clips through protonet.adapt
+    _, _, fp = bake_stream_params(params, bn, cfg)
+    fwd = make_fused_forward(cfg, device=dev)
+    embed_fn = lambda p, x: fwd(p, x)[0]
+    support = torch.from_numpy(shots.reshape(-1, AUDIO_LEN, c_in)).to(dev)
+    labels = torch.arange(N_WAYS, device=dev).repeat_interleave(K_SHOTS)
+    tcn_block.launches = proto_extract.launches = 0
+    w, b = adapt(embed_fn, fp, support, labels, N_WAYS, K_SHOTS)
+    sync(dev)
+    counts = (proto_extract.launches, tcn_block.launches)
+    result["launches"] += counts[1]
+    result["proto_launches"] = counts[0]
+    if 0 in counts:
+        raise AssertionError("audio fsl: a kernel was not launched "
+                             f"(proto_extract, tcn_block) = {counts}")
+    ws_, bs = pn_fc_from_sums(support_sums(embed_fn(fp, support), labels,
+                                           N_WAYS), K_SHOTS)
+    err = max(compare("audio fsl W", w, ws_, False),
+              compare("audio fsl b", b, bs, False))
+    enroll_ms = time_ms(lambda: adapt(embed_fn, fp, support, labels, N_WAYS,
+                                      K_SHOTS), dev, n=5, warmup=1)
+    log(f"audio fsl 5-way {K_SHOTS}-shot of {AUDIO_LEN}-sample clips: W "
+        f"{tuple(w.shape)} matches support_sums+pn_fc_from_sums (max abs err "
+        f"{err:.3g}); proto_extract launches={counts[0]} tcn_block "
+        f"launches={counts[1]}; timing adapt (embed S={N_WAYS * K_SHOTS} + "
+        f"extract, end to end): ms={enroll_ms:.4f}")
+    # greedy cone evaluation against the dense forward's last step
+    clips = torch.from_numpy(audio[:AUDIO_B]).to(dev)
+    for quantize in (False, True):
+        e_c, l_c, evals = cone_eval(params, bn, cfg, clips, quantize=quantize)
+        e_d, l_d = tcn_forward(params, bn, cfg, clips, quantize=quantize)
+        sync(dev)
+        err = max(scaled_close(f"cone_eval quantize={quantize} emb", e_c, e_d),
+                  scaled_close(f"cone_eval quantize={quantize} logits", l_c,
+                               l_d))
+        dense = AUDIO_LEN * 2 * len(cfg.tcn_channels)
+        if evals >= dense:
+            raise AssertionError(f"cone_eval: {evals} evaluations, dense "
+                                 f"{dense}")
+        log(f"audio cone_eval quantize={quantize}: {AUDIO_B} clips x "
+            f"{AUDIO_LEN} samples match tcn_forward's last step (max abs err "
+            f"{err:.3g}, |emb| up to {e_d.abs().max().item():.3g}); "
+            f"{evals} node evaluations against {dense} dense")
+    ws, g = ws_inference_stats(cfg, AUDIO_LEN), cone_stats(cfg, AUDIO_LEN)
+    ratios = (ws["act_entries"] / g["act_entries"], ws["macs"] / g["macs"])
+    kb = g["act_entries"] * 0.5 / 1024
+    if ratios[0] <= 50 or ratios[1] <= 5 or kb >= 2.5:
+        raise AssertionError(f"audio accounting: {ratios}, {kb} kB")
+    log(f"audio accounting at T={AUDIO_LEN}: weight-stationary / greedy cone "
+        f"= {ratios[0]:.1f}x activation entries, {ratios[1]:.2f}x MACs; "
+        f"cone FIFO state {kb:.3f} kB at u4; ring state "
+        f"{stream_state_bytes(cfg) / 1024:.1f} kB per stream at u4, "
+        f"{stream_state_bytes(cfg, 4) / 2**20:.2f} MiB at fp32")
+    return result
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -610,21 +1109,51 @@ def main() -> int:
                 log(f"  ptxas {name}: {line.strip()}")
     dev = torch.device("cuda")
     cfg = get_config("chameleon-tcn")
-    errs = phase_kernels(cfg, dev)
-    tb_time, pe_time = phase_timings(cfg, dev)
-    serve = phase_serve(cfg, dev)
-    fsl = phase_fsl(cfg, dev)
+    audio_cfg = get_config("chameleon-tcn-audio")
+
+    def phase(name, fn, *args, **kw):
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        log(f"phase {name}: {time.perf_counter() - t:.1f} s")
+        return out
+
+    errs = phase("kernels", phase_kernels, cfg, dev)
+    tb_time, pe_time = phase("timings", phase_timings, cfg, dev)
+    serve = phase("serve", phase_serve, cfg, dev)
+    fsl = phase("fsl", phase_fsl, cfg, dev)
+    op_errs = phase("ops", phase_ops, dev, audio_cfg, cfg)
+    mm_time, conv_time = phase("ops timings", phase_ops_timings, dev,
+                               audio_cfg)
+    op_launches = phase("ops main path", phase_ops_main, dev, audio_cfg)
+    audio_errs = phase("audio kernels", phase_kernels, audio_cfg, dev,
+                       embed_t=AUDIO_LEN,
+                       ts=(1, 2, 4, 8, T_CHUNK, AUDIO_LEN))
+    phase("audio timings", phase_timings, audio_cfg, dev, embed_t=AUDIO_LEN)
+    audio = phase("audio", phase_audio, audio_cfg, dev)
     kernels = [
         {"name": "tcn_block", "route": "cuda",
          "source": "src/repro_torch/csrc/tcn_block.cu",
          "replaces": "src/repro/kernels/tcn_block.py:166",
-         "launches": serve["launches"] + sum(c[1] for c in fsl.values()),
-         "max_abs_err": errs["tcn_block"], **tb_time},
+         "launches": serve["launches"] + sum(c[1] for c in fsl.values())
+         + audio["launches"],
+         "max_abs_err": max(errs["tcn_block"], audio_errs["tcn_block"]),
+         **tb_time},
         {"name": "proto_extract", "route": "cuda",
          "source": "src/repro_torch/csrc/proto_extract.cu",
          "replaces": "src/repro/kernels/proto_extract.py:31",
-         "launches": sum(c[0] for c in fsl.values()),
+         "launches": sum(c[0] for c in fsl.values())
+         + audio["proto_launches"],
          "max_abs_err": errs["proto_extract"], **pe_time},
+        {"name": "log2_matmul", "route": "cuda",
+         "source": "src/repro_torch/csrc/log2_matmul.cu",
+         "replaces": "src/repro/kernels/log2_matmul.py:43",
+         "launches": op_launches["log2_matmul"],
+         "max_abs_err": op_errs["log2_matmul"], **mm_time},
+        {"name": "dilated_conv", "route": "cuda",
+         "source": "src/repro_torch/csrc/dilated_conv.cu",
+         "replaces": "src/repro/kernels/dilated_conv.py:35",
+         "launches": op_launches["dilated_conv"],
+         "max_abs_err": op_errs["dilated_conv"], **conv_time},
     ]
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,8 @@ from __future__ import annotations
 
 import os
 
-ENV_KERNEL_BACKEND = "REPRO_TORCH_KERNEL_BACKEND"  # kernels/dispatch.py
+# REPRO_TORCH_KERNEL_BACKEND is kernels/dispatch.ENV_VAR (defined there:
+# this package imports the models, which import dispatch)
 ENV_BUILD_DIR = "REPRO_TORCH_BUILD_DIR"            # kernels/_build.py
 
 

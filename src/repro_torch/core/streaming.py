@@ -6,7 +6,9 @@ length, so a stream's whole state is O(receptive field).  State layout is
 the reference's: ``{"t": int32, "blocks": {"b<i>": {"ring1": (…, n, Cin),
 "ring2": (…, n, C)}}}``.
 
-Two executors advance a stream:
+Two executors advance a stream (a third serving mode, ``cone_eval``,
+evaluates only the last step's dependency cone, with the Fig. 8(c)
+accounting beside it):
 
   * the per-step path (``stream_step`` and its single-session and
     per-chunk wrappers), a Python loop over samples;
@@ -22,6 +24,7 @@ chunks it is pushed in.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.dispatch import require_device
@@ -41,6 +44,12 @@ def ring_sizes(cfg: ArchConfig) -> dict:
         out[f"b{i}"] = {"ring1": ((k - 1) * d, c_in), "ring2": ((k - 1) * d, c)}
         c_in = c
     return out
+
+
+def stream_state_bytes(cfg: ArchConfig, bytes_per_act: float = 0.5) -> float:
+    """Total streaming activation memory (the paper counts 4-bit = 0.5 B)."""
+    return sum(n * c * bytes_per_act
+               for b in ring_sizes(cfg).values() for (n, c) in b.values())
 
 
 def stream_init(cfg: ArchConfig, batch: int, device="cuda") -> dict:
@@ -244,3 +253,137 @@ def make_fused_chunk(cfg: ArchConfig, *, quantize: bool = False,
         return {"t": t + lengths, "blocks": new_blocks}, emb, logits
 
     return fused_chunk
+
+
+# ---------------------------------------------------------------------------
+# Greedy dilation-aware execution (paper Fig. 8a/c)
+#
+# To emit only the FINAL timestep's embedding, a dilated TCN needs, at layer
+# l, just the positions in the backward dependency cone — the dilation grid
+# {T-1 - j*d_l}.  Deeper layers are evaluated exponentially more sparsely,
+# the steady-state FIFO per conv is k-1 entries independent of dilation, and
+# the total activation state is sum_l (k-1)*C ~ 2 kB for the raw-audio
+# model.  Both serving modes give the full conv's outputs.
+# ---------------------------------------------------------------------------
+
+def _cone_positions(cfg: ArchConfig, T: int) -> list:
+    """Needed positions per block, top down: a list of sorted int64 numpy
+    arrays, index 0 = input positions, index nb = [T-1]."""
+    k = cfg.tcn_kernel
+    nb = len(cfg.tcn_channels)
+    need = {nb: np.array([T - 1])}
+    for b in range(nb - 1, -1, -1):
+        d = 2 ** b
+        # two stacked convs with the same dilation: offsets 0..2(k-1)d
+        offs = np.arange(0, 2 * (k - 1) * d + 1, d)
+        prev = (need[b + 1][:, None] - offs[None, :]).reshape(-1)
+        need[b] = np.unique(prev[prev >= 0])
+    return [need[b] for b in range(nb + 1)]
+
+
+def _cone_taps(pos_set, source_pos, source_vals, d: int, k: int):
+    """The k causal conv taps at ``pos_set`` (oldest first) read from values
+    known at the sorted ``source_pos``; a position before 0 reads zero."""
+    cols = []
+    for j in range(k):
+        q = pos_set - (k - 1 - j) * d
+        i = np.minimum(np.searchsorted(source_pos, q), len(source_pos) - 1)
+        hit = source_pos[i] == q
+        rows = torch.from_numpy(np.where(hit, i, 0)).to(source_vals.device)
+        mask = torch.from_numpy(hit.astype(np.float32)).to(source_vals.device)
+        cols.append(source_vals[:, rows] * mask[None, :, None])
+    return cols
+
+
+def cone_eval(params, bn_state, cfg: ArchConfig, x, *, quantize: bool = False):
+    """Greedy dilation-aware evaluation of the FINAL timestep's embedding:
+    computes only the backward cone (paper Fig. 8a), as tensor ops on x's
+    device.  x: (B, T, Cin).  Returns (embedding (B, V), logits (B, n),
+    node evaluations)."""
+    qw = fake_quant_log2 if quantize else (lambda w: w)
+    qa = (lambda a: fake_quant_act_u4(a, cfg.act_scale)) if quantize \
+        else (lambda a: a)
+    T = x.shape[1]
+    k = cfg.tcn_kernel
+    need = _cone_positions(cfg, T)
+    total_evals = 0
+    # h holds block-b input values at positions need[b]
+    h = x[:, torch.from_numpy(need[0]).to(x.device)]
+    for b in range(len(cfg.tcn_channels)):
+        d = 2 ** b
+        p = params["blocks"][f"b{b}"]
+        st = bn_state[f"b{b}"]
+        pos_in, pos_out = need[b], need[b + 1]
+        # conv1 at the mid grid: positions needed by conv2 of this block
+        mid = np.unique((pos_out[:, None]
+                         - np.arange(0, (k - 1) * d + 1, d)[None]).reshape(-1))
+        mid = mid[mid >= 0]
+        w1 = qw(p["conv1_w"])
+        y1 = sum(c @ w1[j] for j, c in enumerate(
+            _cone_taps(mid, pos_in, h, d, k))) + p["conv1_b"]
+        y1 = qa(torch.relu(_bn_inf(y1, p, st, "bn1")))
+        total_evals += len(mid)
+        w2 = qw(p["conv2_w"])
+        y2 = sum(c @ w2[j] for j, c in enumerate(
+            _cone_taps(pos_out, mid, y1, d, k))) + p["conv2_b"]
+        y2 = _bn_inf(y2, p, st, "bn2")
+        total_evals += len(pos_out)
+        # residual: block input at pos_out (a subset of pos_in)
+        ridx = torch.from_numpy(np.searchsorted(pos_in, pos_out)).to(x.device)
+        res_src = h[:, ridx]
+        if "down_w" in p:
+            res = res_src @ qw(p["down_w"])[0] + p["down_b"]
+        else:
+            res = res_src
+        h = qa(torch.relu(y2 + res))
+    feat = h[:, -1, :]
+    emb = qa(torch.relu(feat @ qw(params["head_w"]) + params["head_b"]))
+    logits = emb @ params["fc"]["w"] + params["fc"]["b"]
+    return emb, logits, total_evals
+
+
+def cone_stats(cfg: ArchConfig, seq_len: int) -> dict:
+    """Steady-state greedy-execution accounting for a length-T window:
+    per-conv FIFO depth k-1 (dilation-independent!), per-layer evaluations
+    = T / dilation."""
+    k = cfg.tcn_kernel
+    acts = 0
+    macs = 0
+    c_in = cfg.tcn_in_channels
+    for i, c in enumerate(cfg.tcn_channels):
+        d = 2 ** i
+        evals = max(seq_len // d, 1)
+        macs += evals * k * (c_in * c + c * c)
+        acts += (k - 1) * (c_in + c)  # two FIFOs per block
+        c_in = c
+    return {"act_entries": acts, "macs": macs}
+
+
+def ws_inference_stats(cfg: ArchConfig, seq_len: int) -> dict:
+    """Weight-stationary baseline accounting for the Fig. 8(c) comparison
+    (paper: ~90x memory / ~10x compute at 16k steps): activation memory is a
+    full-sequence buffer (WS requires pre-loading the sequence), and compute
+    evaluates every layer densely at every timestep (no dilation-aware
+    skipping of the unused cone complement)."""
+    k = cfg.tcn_kernel
+    cmax = max(max(cfg.tcn_channels), cfg.tcn_in_channels)
+    acts = seq_len * cmax
+    macs = 0
+    c_in = cfg.tcn_in_channels
+    for c in cfg.tcn_channels:
+        macs += seq_len * k * (c_in * c + c * c)
+        c_in = c
+    return {"act_entries": acts, "macs": macs}
+
+
+def greedy_inference_stats(cfg: ArchConfig, seq_len: int) -> dict:
+    """Chameleon-style streaming accounting: FIFO state + dilation-aware
+    compute (only real taps, no zero-padding work)."""
+    k = cfg.tcn_kernel
+    acts = sum(n * c for b in ring_sizes(cfg).values() for (n, c) in b.values())
+    macs = 0
+    c_in = cfg.tcn_in_channels
+    for c in cfg.tcn_channels:
+        macs += seq_len * k * (c_in * c + c * c)
+        c_in = c
+    return {"act_entries": acts, "macs": macs}

@@ -5,8 +5,8 @@
 //   q = sign-extended nibble, value = 0 for q == 0,
 //   else sign(q) * 2^(1 - |q|) * scale.
 // 2^(1-|q|) is built from its exponent bits, so the product with the scale
-// is the exact value dequantize_log2 gives.  The log2_matmul port will reuse
-// this function.
+// is the exact value dequantize_log2 gives.  tcn_block.cu and log2_matmul.cu
+// both decode with it.
 #pragma once
 
 #include <cstdint>

@@ -27,7 +27,8 @@ from pathlib import Path
 from repro_torch.configs.runtime import ENV_BUILD_DIR, env_str
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = {"tcn_block": "tcn_block.cu", "proto_extract": "proto_extract.cu"}
+SOURCES = {"tcn_block": "tcn_block.cu", "proto_extract": "proto_extract.cu",
+           "log2_matmul": "log2_matmul.cu", "dilated_conv": "dilated_conv.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -15,7 +15,7 @@ the device raises.  Selection order: explicit argument >
 ``REPRO_TORCH_KERNEL_BACKEND`` > auto.
 
 The resolved name is only validated: the wrappers (``kernels/tcn_block``,
-``kernels/proto_extract``) branch on each tensor's device themselves, so
+``proto_extract``, ``log2_matmul``, ``dilated_conv``) branch on each tensor's device themselves, so
 a backend setting never changes what runs, it only raises on a mismatch.
 """
 
@@ -23,15 +23,17 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.runtime import ENV_KERNEL_BACKEND, env_str
-
-ENV_VAR = ENV_KERNEL_BACKEND
+ENV_VAR = "REPRO_TORCH_KERNEL_BACKEND"
 BACKENDS = ("auto", "cuda", "ref")
 
 
 def resolve(requested: str | None, device) -> str:
     """Resolve a requested backend for ops that will run on ``device``.
     Returns "cuda" or "ref"; raises on an unknown name or a mismatch."""
+    # imported here: repro_torch.configs imports the models, which import
+    # this module, so a top-level import would make the import order matter
+    from repro_torch.configs.runtime import env_str
+
     req = (requested or "auto").lower()
     env = env_str(ENV_VAR)
     if req == "auto" and env:

@@ -65,7 +65,9 @@ def proto_extract(emb: torch.Tensor, onehot: torch.Tensor, k: int):
 proto_extract.launches = 0
 
 
-def make_proto_extract_op(backend: str | None, device):
-    """Resolve the backend ONCE for ops on ``device`` and return the op."""
-    dispatch.resolve(backend, device)
+def make_proto_extract_op(backend: str | None = None, device="cuda"):
+    """Resolve the backend ONCE for ops on ``device`` (raises without a
+    card when ``device`` is CUDA) and return the op: (emb (Nk, V), onehot
+    (N, Nk), k) -> (W (N, V), b (N,))."""
+    dispatch.resolve(backend, dispatch.require_device(device))
     return proto_extract

@@ -1,12 +1,15 @@
 """Plain PyTorch versions of the port's kernels (the correctness contract).
 
-Each sums in the same fixed order as its CUDA kernel — taps j = 0..k-1
+``tcn_block`` and ``proto_extract``'s versions sum in the same fixed order
+as their CUDA kernels — taps j = 0..k-1
 outside, input channels in order inside, a separately rounded multiply
 and add per term (the kernels use ``__fmul_rn``/``__fadd_rn``, which the
 compiler never contracts into an FMA).  So every output element depends
 on its own inputs only, never on T or S: the chunk-size invariance and
 park/resume exactness the service relies on hold on the CPU as they do
-on the card.
+on the card.  ``log2_matmul_ref`` and ``dilated_conv_ref`` are the
+reference's semantics as plain products (no invariant rests on their
+bits), so their kernels are held to them with a tolerance.
 """
 
 from __future__ import annotations
@@ -110,3 +113,24 @@ def proto_extract_ref(emb: torch.Tensor, onehot: torch.Tensor, k: int):
         w = term if w is None else w + term
     b = -(w * w).sum(dim=-1) * (1.0 / (2.0 * k))
     return w, b
+
+
+def log2_matmul_ref(x: torch.Tensor, w_packed: torch.Tensor,
+                    scale: torch.Tensor) -> torch.Tensor:
+    """x (M, K) fp32 or bf16; w_packed (K, N/2) uint8 nibble-packed log2
+    codes; scale ().  Returns (M, N) fp32 = x @ dequant(w)."""
+    w = dequantize_log2(unpack_nibbles(w_packed), scale)
+    return x.float() @ w
+
+
+def dilated_conv_ref(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                     dilation: int) -> torch.Tensor:
+    """Causal dilated conv1d.  x (B, T, Cin); w (K, Cin, Cout); b (Cout,).
+    Left-pads by (K-1)*dilation and sums K tap-shifted products (no cuDNN,
+    so no TF32 on the card)."""
+    k = w.shape[0]
+    pad = (k - 1) * dilation
+    T = x.shape[1]
+    xp = torch.nn.functional.pad(x, (0, 0, pad, 0))
+    y = sum(xp[:, j * dilation:j * dilation + T] @ w[j] for j in range(k))
+    return y + b

@@ -17,6 +17,7 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.kernels.dispatch import require_device
+from repro_torch.kernels.ref import dilated_conv_ref as causal_conv1d
 from repro_torch.models.config import ArchConfig
 from repro_torch.quant.log2 import (
     compute_scale,
@@ -103,17 +104,6 @@ def tcn_empty_state(cfg: ArchConfig, device="cuda") -> dict:
                       "bn2_mean": torch.zeros(c, device=dev),
                       "bn2_var": torch.ones(c, device=dev)}
             for i, c in enumerate(cfg.tcn_channels)}
-
-
-def causal_conv1d(x, w, b, dilation: int):
-    """x: (B, T, Cin); w: (K, Cin, Cout).  Left-padded causal dilated conv
-    as k tap-shifted matmuls (no cuDNN, so no TF32 on the card)."""
-    k = w.shape[0]
-    pad = (k - 1) * dilation
-    T = x.shape[1]
-    xp = torch.nn.functional.pad(x, (0, 0, pad, 0))
-    y = sum(xp[:, j * dilation:j * dilation + T] @ w[j] for j in range(k))
-    return y + b
 
 
 def _bn(x, scale, bias, mean, var):

@@ -1,5 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on an
-NVIDIA GPU (TF32 plays no part: neither side calls a library product).
+NVIDIA GPU.  ``tcn_block`` and ``proto_extract`` share their plain
+versions' summation order and are compared bit for bit; ``log2_matmul``
+and ``dilated_conv`` are compared at the JAX tests' tolerances with the
+plain products in full fp32 (TF32 switched off around them).
 Marked ``cuda``; every test skips when no card is present.  This file
 imports no JAX, so it runs on a machine that has only PyTorch:
 
@@ -11,8 +14,15 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels.dilated_conv import dilated_conv  # noqa: E402
+from repro_torch.kernels.log2_matmul import log2_matmul  # noqa: E402
 from repro_torch.kernels.proto_extract import proto_extract  # noqa: E402
-from repro_torch.kernels.ref import proto_extract_ref, tcn_block_fused  # noqa: E402
+from repro_torch.kernels.ref import (  # noqa: E402
+    dilated_conv_ref,
+    log2_matmul_ref,
+    proto_extract_ref,
+    tcn_block_fused,
+)
 from repro_torch.kernels.tcn_block import tcn_block  # noqa: E402
 from repro_torch.models.tcn import _bake_weight  # noqa: E402
 
@@ -24,6 +34,18 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     return torch.device("cuda")
+
+
+@pytest.fixture
+def no_tf32(dev):
+    """Full-fp32 library products for the plain versions, restored after."""
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield dev
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = old
 
 
 def _block(seed, S, T, Cin, C, k, d, *, packed, with_down, dev):
@@ -83,3 +105,71 @@ def test_proto_extract_kernel_matches_plain(dev, n_ways, k):
     assert proto_extract.launches == before + 1
     assert torch.equal(w, wr)
     torch.testing.assert_close(b, br, rtol=1e-5, atol=1e-6)
+
+
+def _packed(rng, K, N, dev):
+    from repro_torch.models.tcn import _bake_weight
+
+    w = torch.tensor((rng.normal(size=(K, N)) * 0.05).astype(np.float32))
+    p = _bake_weight(w, True)[1]
+    return p["codes"].to(dev), p["scale"].to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N", [(8, 32, 16), (100, 64, 130), (1, 256, 64),
+                                   (16, 2048, 8192), (70, 300, 258)])
+def test_log2_matmul_kernel_matches_plain(no_tf32, M, K, N, dtype):
+    dev = no_tf32
+    rng = np.random.default_rng(M + K + N)
+    codes, scale = _packed(rng, K, N, dev)
+    x = torch.tensor(rng.normal(size=(M, K)).astype(np.float32)).to(dev, dtype)
+    before = log2_matmul.launches
+    got = log2_matmul(x, codes, scale)
+    want = log2_matmul_ref(x, codes, scale)
+    torch.cuda.synchronize()
+    assert log2_matmul.launches == before + 1
+    # bf16 x is upcast exactly on both sides: one fp32 tolerance (JAX test's)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+
+
+def test_log2_matmul_identity_decodes_bit_exact(dev):
+    from repro_torch.quant.log2 import dequantize_log2, unpack_nibbles
+
+    codes, scale = _packed(np.random.default_rng(0), 256, 256, dev)
+    got = log2_matmul(torch.eye(256, device=dev), codes, scale)
+    assert torch.equal(got, dequantize_log2(unpack_nibbles(codes), scale))
+
+
+@pytest.mark.parametrize("B,T,Cin,Cout,K,d", [
+    (2, 37, 4, 8, 3, 1), (1, 200, 8, 100, 2, 16), (2, 20, 4, 100, 7, 8),
+    (2, 3000, 24, 24, 7, 256), (3, 500, 1, 24, 1, 1), (2, 64, 40, 33, 3, 2)])
+def test_dilated_conv_kernel_matches_plain(no_tf32, B, T, Cin, Cout, K, d):
+    dev = no_tf32
+    rng = np.random.default_rng(T + Cout)
+    f = lambda *s: torch.tensor(rng.normal(size=s).astype(np.float32)).to(dev)
+    x, w, b = f(B, T, Cin), f(K, Cin, Cout) * (K * Cin) ** -0.5, f(Cout) * 0.1
+    before = dilated_conv.launches
+    got = dilated_conv(x, w, b, d)
+    want = dilated_conv_ref(x, w, b, d)
+    torch.cuda.synchronize()
+    assert dilated_conv.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    x2 = x.clone()
+    x2[:, T // 2:] = 123.0
+    assert torch.equal(dilated_conv(x2, w, b, d)[:, :T // 2], got[:, :T // 2])
+
+
+def test_new_kernels_reject_bad_operands(dev):
+    codes, scale = _packed(np.random.default_rng(1), 32, 16, dev)
+    x = torch.ones(4, 32, device=dev)
+    with pytest.raises(ValueError):
+        log2_matmul(x.double(), codes, scale)
+    with pytest.raises(ValueError):
+        log2_matmul(x, codes.cpu(), scale)
+    with pytest.raises(ValueError):
+        log2_matmul(torch.ones(4, 31, device=dev), codes, scale)
+    w = torch.ones(3, 2, 4, device=dev)
+    with pytest.raises(ValueError):
+        dilated_conv(torch.ones(1, 5, 3, device=dev), w, torch.zeros(4, device=dev), 1)
+    with pytest.raises(ValueError):
+        dilated_conv(torch.ones(1, 5, 2, device=dev), w, torch.zeros(4), 1)

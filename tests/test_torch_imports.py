@@ -34,7 +34,24 @@ def _imported_roots(path: Path):
 def test_port_files_found():
     names = {p.name for p in PORT_FILES}
     assert {"chip_smoke.py", "tcn_block.py", "proto_extract.py",
-            "service.py", "convert.py"} <= names
+            "service.py", "convert.py", "log2_matmul.py", "dilated_conv.py",
+            "ops.py"} <= names
+
+
+@pytest.mark.parametrize("module", ["repro_torch.kernels.dispatch",
+                                    "repro_torch.kernels",
+                                    "repro_torch.configs"])
+def test_module_imports_first(module):
+    """Each of these imports in a fresh interpreter before anything else of
+    the port (the configs import the models, which import dispatch)."""
+    import os
+    import subprocess
+    import sys
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", f"import {module}"], env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -48,6 +65,11 @@ def test_default_device_entry_points_raise_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
     from repro_torch.configs import get_config
+    from repro_torch.kernels import (
+        make_dilated_conv_op,
+        make_log2_matmul_op,
+        make_proto_extract_op,
+    )
     from repro_torch.models import build_tcn_bundle
     from repro_torch.models.tcn import make_fused_forward
     from repro_torch.sessions import grid_init
@@ -55,7 +77,9 @@ def test_default_device_entry_points_raise_without_a_card():
     cfg = get_config("chameleon-tcn")
     for entry in (lambda: build_tcn_bundle(cfg),
                   lambda: make_fused_forward(cfg),
-                  lambda: grid_init(cfg, 2)):
+                  lambda: grid_init(cfg, 2),
+                  make_log2_matmul_op, make_dilated_conv_op,
+                  make_proto_extract_op):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             entry()
     assert build_tcn_bundle(cfg, "cpu").device.type == "cpu"

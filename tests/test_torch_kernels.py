@@ -180,6 +180,7 @@ def test_build_layer_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.build_all()
-    assert set(_build.SOURCES) == {"tcn_block", "proto_extract"}
+    assert set(_build.SOURCES) == {"tcn_block", "proto_extract", "log2_matmul",
+                                   "dilated_conv"}
     for src in _build.SOURCES.values():
         assert (_build.CSRC / src).exists()
