@@ -8,11 +8,16 @@ Phases, each raising on failure (nothing is caught; any failure exits
 non-zero):
 
   kernels  each kernel against its plain PyTorch version on the card at
-           every main-path shape (TF32 off);
+           every main-path shape (TF32 off): tcn_block's strip entry per
+           block, and its chunk entry (tcn_chunk, every block in one
+           launch) over a 64-slot grid whose step counters sit just before,
+           at and after every ring's wrap, ragged lengths from 0 to T,
+           functional and in place, bit for bit (h, rings, t);
   serve    StreamSessionService(fused=True) at the full chameleon-tcn width:
            64 sessions, 8 tenants, ragged 784-sample streams, 5-way 5-shot
-           enrollment, poll; then chunk-size invariance (t_chunk 16 vs 1)
-           and park/resume, bit-exact, for fp32 and quantized services;
+           enrollment, poll (one tcn_chunk launch per tick and no plain ring
+           bookkeeping, counted); then chunk-size invariance (t_chunk 16 vs
+           1) and park/resume, bit-exact, for fp32 and quantized services;
   fsl      5-way 1-shot and 5-shot episodes through protonet.adapt;
   ops      log2_matmul and dilated_conv (repro_torch.kernels.ops) against
            their plain versions at every listed shape (TF32 off), the
@@ -59,6 +64,9 @@ PEAK_BYTES = 3.35e12
 RTOL, ATOL = 1e-5, 1e-6
 QUANT_STEP = 0.25  # one u4 step at the fixed activation scale
 N_SLOTS, T_CHUNK, N_TENANTS, STREAM_LEN = 64, 16, 8, 784
+# chunk lengths the service gives tcn_chunk: t_chunk 16 or 160 and the
+# power-of-two buckets of ragged remainders
+CHUNK_TS = (1, 2, 4, 8, 16, 160)
 N_WAYS, K_SHOTS = 5, 5
 
 
@@ -185,6 +193,90 @@ def block_work(S, T, d, Cin, C, k, has_down, packed):
     return nbytes, flops
 
 
+def chunk_inputs(g, cfg, S, T, packed, dev, full=False):
+    """A slot grid at ``cfg``'s widths with random rings, step counters just
+    before, at and after every ring's wrap (and 0), one chunk, ragged
+    lengths in [0, T] with 0 and T among them (all T when ``full``), and
+    random block weights (fp32 or packed log2)."""
+    import torch
+
+    k = cfg.tcn_kernel
+    blocks, rings, times = {}, {}, [0]
+    for (i, d, Cin, C, has_down) in block_shapes(cfg):
+        n = (k - 1) * d
+        blocks[f"b{i}"] = block_inputs(g, 1, 1, d, Cin, C, k, has_down,
+                                       packed, dev)[2]
+        rings[f"b{i}"] = {
+            "ring1": torch.randn((S, n, Cin), generator=g, device=dev),
+            "ring2": torch.randn((S, n, C), generator=g, device=dev)}
+        times += [n - 1, n, n + 1]
+    t = torch.tensor([times[i % len(times)] for i in range(S)],
+                     dtype=torch.int32, device=dev)
+    if full:
+        lengths = torch.full((S,), T, dtype=torch.int32, device=dev)
+    else:
+        lengths = torch.randint(0, T + 1, (S,), generator=g, device=dev,
+                                dtype=torch.int32)
+        lengths[0], lengths[1] = 0, T
+    x = torch.randn((S, T, cfg.tcn_in_channels), generator=g, device=dev)
+    return blocks, {"t": t, "blocks": rings}, x, lengths
+
+
+def chunk_work(cfg, S, T, packed):
+    """(bytes, flops) one in-place tcn_chunk call must move and do: the
+    weights, x in and h out, t and the lengths, and per conv of every slot
+    the (k-1)*min(d, T) history rows its taps read and the min(T, n) ring
+    rows it writes."""
+    k = cfg.tcn_kernel
+    wbytes = 0.5 if packed else 4.0
+    nbytes = S * T * (cfg.tcn_in_channels + cfg.tcn_channels[-1]) * 4 \
+        + 3 * S * 4
+    flops = 0
+    for (_, d, Cin, C, has_down) in block_shapes(cfg):
+        n = (k - 1) * d
+        w_elems = k * Cin * C + k * C * C + (Cin * C if has_down else 0)
+        nbytes += w_elems * wbytes + (3 if has_down else 2) * C * 4
+        nbytes += S * ((k - 1) * min(d, T) + min(T, n)) * (Cin + C) * 4
+        flops += S * T * (2 * k * Cin * C + 2 * k * C * C
+                          + (2 * Cin * C if has_down else 0))
+    return nbytes, flops
+
+
+def same_grid(a, b) -> bool:
+    import torch
+
+    return torch.equal(a["t"], b["t"]) and all(
+        torch.equal(a["blocks"][n][r], b["blocks"][n][r])
+        for n in a["blocks"] for r in ("ring1", "ring2"))
+
+
+def clone_grid(g):
+    return {"t": g["t"].clone(), "blocks": {
+        n: {r: v.clone() for r, v in d.items()} for n, d in g["blocks"].items()}}
+
+
+class counting:
+    """Within the block, count calls of the named functions of ``module``
+    (looked up through the module, as their callers do)."""
+
+    def __init__(self, module, names):
+        self.module, self.names = module, names
+        self.calls = dict.fromkeys(names, 0)
+
+    def __enter__(self):
+        self.saved = {n: getattr(self.module, n) for n in self.names}
+        for n, fn in self.saved.items():
+            def wrapped(*a, _n=n, _fn=fn, **kw):
+                self.calls[_n] += 1
+                return _fn(*a, **kw)
+            setattr(self.module, n, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.module, n, fn)
+
+
 def allclose(name, got, want, rtol, atol) -> float:
     """Raise unless |got-want| <= atol + rtol*|want| everywhere; returns
     the max abs error."""
@@ -264,6 +356,35 @@ def phase_kernels(cfg, dev, seed: int = 0, embed_t: int = STREAM_LEN,
                         compare(tag + " h", h, hr, quantize),
                         compare(tag + " mid", mid, mr, quantize))
                     n_cases += 1
+    from repro_torch.kernels.ref import tcn_chunk_plain
+    from repro_torch.kernels.tcn_block import tcn_chunk
+
+    for T in CHUNK_TS:
+        for packed in (False, True):
+            for quantize in (False, True):
+                blocks, grid, x, lengths = chunk_inputs(g, cfg, N_SLOTS, T,
+                                                        packed, dev)
+                kw = dict(k=k, act_scale=cfg.act_scale, quantize=quantize)
+                want, hr = tcn_chunk_plain(blocks, grid, x, lengths, **kw)
+                before = clone_grid(grid)
+                got, h = tcn_chunk(blocks, grid, x, lengths, **kw)
+                sync(dev)
+                tag = (f"tcn_chunk S={N_SLOTS} T={T} packed={packed} "
+                       f"quantize={quantize}")
+                if not same_grid(grid, before):
+                    raise AssertionError(f"{tag}: the functional call changed "
+                                         "its input grid")
+                if not (torch.equal(h, hr) and same_grid(got, want)):
+                    raise AssertionError(f"{tag}: differs from the plain "
+                                         "version")
+                out, h2 = tcn_chunk(blocks, grid, x, lengths, inplace=True,
+                                    **kw)
+                sync(dev)
+                if not (out is grid and torch.equal(h2, hr)
+                        and same_grid(grid, want)):
+                    raise AssertionError(f"{tag} in place: differs from the "
+                                         "plain version")
+                n_cases += 2
     V = cfg.embed_dim
     for (N, shots) in ((N_WAYS, [1] * N_WAYS), (N_WAYS, [K_SHOTS] * N_WAYS),
                        (37, [1 + (j % 4) for j in range(37)])):
@@ -281,16 +402,20 @@ def phase_kernels(cfg, dev, seed: int = 0, embed_t: int = STREAM_LEN,
                                     compare(tag + " W", w, wr, False),
                                     compare(tag + " b", b, br, False))
         n_cases += 1
-    log(f"kernels {cfg.name}: {n_cases} cases agree with the plain versions; "
-        f"max abs err tcn_block={errs['tcn_block']:.3g} "
+    log(f"kernels {cfg.name}: {n_cases} cases agree with the plain versions "
+        f"(tcn_chunk bit for bit at T in {CHUNK_TS}, functional and in place);"
+        f" max abs err tcn_block={errs['tcn_block']:.3g} "
         f"proto_extract={errs['proto_extract']:.3g}")
     return errs
 
 
 def phase_timings(cfg, dev, seed: int = 1, embed_t: int = STREAM_LEN):
     """Per-shape kernel / plain / library times at the main-path shapes:
-    the serve tick (S=64, T=16) and a 5-shot episode's embeds (S=25,
-    T=``embed_t``) of every block, and one proto_extract."""
+    the serve tick (S=64, T=16) through tcn_chunk (in place, as the service
+    calls it, and functional), the strip entry per block at the serve
+    tick's and a 5-shot episode's embed shapes (S=25, T=``embed_t``), and
+    one proto_extract.  The tcn_block JSON entry gets the chunk's numbers:
+    the serve path's launch."""
     import numpy as np
     import torch
     from repro_torch.kernels.proto_extract import proto_extract
@@ -325,11 +450,40 @@ def phase_timings(cfg, dev, seed: int = 1, embed_t: int = STREAM_LEN):
                 tick["bytes"] += nb
                 tick["flops"] += fl
     tb_bound, tb_by = bound(tick["bytes"], tick["flops"])
-    log(f"timing tcn_block {cfg.name} serve tick "
+    log(f"timing tcn_block {cfg.name} serve tick through the strip entry "
         f"({len(cfg.tcn_channels)} blocks, S={N_SLOTS}, T={T_CHUNK}): "
         f"ms={tick['ms']:.4f} wrapper_ms={tick['wrapper_ms']:.4f} "
         f"plain_ms={tick['plain_ms']:.4f} bound_ms={tb_bound:.6f} "
         f"bound_by={tb_by}")
+    from repro_torch.kernels.ref import tcn_chunk_plain
+    from repro_torch.kernels.tcn_block import tcn_chunk
+
+    blocks, grid, x, lengths = chunk_inputs(g, cfg, N_SLOTS, T_CHUNK, False,
+                                            dev, full=True)
+    call = lambda: tcn_chunk(blocks, grid, x, lengths, k=k, inplace=True)
+    functional = lambda: tcn_chunk(blocks, grid, x, lengths, k=k)
+    ch = {"ms": device_ms(call, dev), "wrapper_ms": time_ms(call, dev),
+          "plain_ms": time_ms(lambda: tcn_chunk_plain(blocks, grid, x,
+                                                      lengths, k=k), dev),
+          "library_ms": None}
+    functional_ms = device_ms(functional, dev)
+    nb, fl = chunk_work(cfg, N_SLOTS, T_CHUNK, False)
+    ch["bound_ms"], ch["bound_by"] = bound(nb, fl)
+    per_t = []
+    for T in CHUNK_TS:
+        b_, g_, x_, l_ = chunk_inputs(g, cfg, N_SLOTS, T, False, dev, full=True)
+        ms_t = device_ms(lambda: tcn_chunk(b_, g_, x_, l_, k=k, inplace=True),
+                         dev)
+        per_t.append(f"T={T}:{ms_t:.4f}/{bound(*chunk_work(cfg, N_SLOTS, T, False))[0]:.6f}")
+    log(f"timing tcn_chunk {cfg.name} S={N_SLOTS} in place, device ms/bound "
+        f"ms per chunk length: {' '.join(per_t)}")
+    log(f"timing tcn_chunk {cfg.name} serve tick ({len(cfg.tcn_channels)} "
+        f"blocks in one launch, S={N_SLOTS}, T={T_CHUNK}, in place): "
+        f"ms={ch['ms']:.4f} wrapper_ms={ch['wrapper_ms']:.4f} "
+        f"plain_ms={ch['plain_ms']:.4f} bound_ms={ch['bound_ms']:.6f} "
+        f"bound_by={ch['bound_by']} (bytes={nb:.0f} flops={fl:.0f}; "
+        f"fixed-order fp32 ceiling {fl / (PEAK_FP32_FLOPS / 2) * 1e3:.6f} "
+        f"ms); functional call ms={functional_ms:.4f}")
     V = cfg.embed_dim
     labels = np.repeat(np.arange(N_WAYS), K_SHOTS)
     emb = torch.from_numpy(
@@ -357,9 +511,7 @@ def phase_timings(cfg, dev, seed: int = 1, embed_t: int = STREAM_LEN):
         f"plain_ms={pe['plain_ms']:.4f} "
         f"library_ms={pe['library_ms']:.4f} bound_ms={pe['bound_ms']:.8f} "
         f"bound_by={pe['bound_by']}")
-    return ({"ms": tick["ms"], "wrapper_ms": tick["wrapper_ms"],
-             "plain_ms": tick["plain_ms"],
-             "bound_ms": tb_bound, "bound_by": tb_by, "library_ms": None}, pe)
+    return ch, pe
 
 
 # ---------------------------------------------------------------------------
@@ -461,12 +613,55 @@ def same_outputs(a: dict, b: dict) -> bool:
     return True
 
 
+# the plain ring bookkeeping and block of the chunk's plain version: a CUDA
+# grid must never reach them
+PLAIN_CHUNK = ("ordered_history", "ring_advance", "tcn_block_fused")
+
+
+def check_drive_launches(name, svc, cfg, plain_calls) -> tuple[int, int]:
+    """After a drive: one tcn_chunk launch per tick, the strip entry only
+    for the N_WAYS enrollment embeds (one call per block each), and no
+    call of the plain chunk path.  Returns (chunk, strip) launches."""
+    from repro_torch.kernels.tcn_block import tcn_block, tcn_chunk
+
+    chunk, strip = tcn_chunk.launches, tcn_block.launches
+    if chunk != svc.dispatches:
+        raise AssertionError(f"{name}: {chunk} tcn_chunk launches in "
+                             f"{svc.dispatches} ticks")
+    if strip != N_WAYS * len(cfg.tcn_channels):
+        raise AssertionError(f"{name}: {strip} strip launches, expected "
+                             f"{N_WAYS} enrollment embeds")
+    if any(plain_calls.values()):
+        raise AssertionError(f"{name}: the plain chunk path ran {plain_calls}")
+    return chunk, strip
+
+
+def time_tick(name, svc, x, dev) -> float:
+    """One push_audio tick: exactly one tcn_chunk launch and no strip
+    launch; then its end-to-end latency and, on the card, its profile."""
+    from repro_torch.kernels.tcn_block import tcn_block, tcn_chunk
+
+    tcn_block.launches = tcn_chunk.launches = 0
+    svc.push_audio(x)
+    if (tcn_chunk.launches, tcn_block.launches) != (1, 0):
+        raise AssertionError(f"{name}: a tick launched tcn_chunk "
+                             f"{tcn_chunk.launches} and the strip entry "
+                             f"{tcn_block.launches} times")
+    ms = time_ms(lambda: svc.push_audio(x), dev)
+    log(f"timing {name} tick ({len(x)}x{T_CHUNK} samples, end to end, one "
+        f"tcn_chunk launch): ms={ms:.4f}")
+    if dev.type == "cuda":
+        profile_tick(lambda: svc.push_audio(x))
+    return ms
+
+
 def phase_serve(cfg, dev, seed: int = 0, stream_len: int = STREAM_LEN,
                 n_sessions: int = N_SLOTS):
     import numpy as np
     import torch
+    from repro_torch.kernels import ref
     from repro_torch.kernels.proto_extract import proto_extract
-    from repro_torch.kernels.tcn_block import tcn_block
+    from repro_torch.kernels.tcn_block import tcn_block, tcn_chunk
     from repro_torch.models.tcn import bake_stream_params, make_fused_forward
     from repro_torch.sessions import StreamSessionService
 
@@ -486,13 +681,13 @@ def phase_serve(cfg, dev, seed: int = 0, stream_len: int = STREAM_LEN,
     result = {}
     for quantize in (False, True):
         svc = service(quantize, T_CHUNK)
-        tcn_block.launches = proto_extract.launches = 0
-        main, polls = drive(svc, audio, schedule, shots)
-        launches = tcn_block.launches
+        tcn_block.launches = tcn_chunk.launches = proto_extract.launches = 0
+        with counting(ref, PLAIN_CHUNK) as plain:
+            main, polls = drive(svc, audio, schedule, shots)
+        chunk, strip = check_drive_launches(f"serve quantize={quantize}", svc,
+                                            cfg, plain.calls)
         if not quantize:
-            result["launches"] = launches
-        if launches == 0:
-            raise AssertionError("serve: the main path launched no tcn_block")
+            result["launches"] = chunk + strip
         for s, (e, lg, tl) in main.items():
             if e.shape != (stream_len, cfg.embed_dim) or \
                     lg.shape != (stream_len, cfg.n_classes):
@@ -510,7 +705,8 @@ def phase_serve(cfg, dev, seed: int = 0, stream_len: int = STREAM_LEN,
             raise AssertionError("serve: a session lost steps")
         log(f"serve quantize={quantize}: {n_sessions} sessions x {stream_len}"
             f" samples in {len(schedule)} ragged rounds, {svc.dispatches} "
-            f"ticks, tcn_block launches={launches}, enrolled "
+            f"ticks, tcn_chunk launches={chunk} (one a tick), strip "
+            f"launches={strip} (enrollment), plain chunk calls 0, enrolled "
             f"{polls[0]['n_ways']} ways; outputs finite")
         one, _ = drive(service(quantize, 1), audio, schedule, shots)
         if not same_outputs(main, one):
@@ -527,11 +723,7 @@ def phase_serve(cfg, dev, seed: int = 0, stream_len: int = STREAM_LEN,
         if not quantize:
             sids = [svc.open_session() for _ in range(n_sessions)]
             x = {sid: audio[i, :T_CHUNK] for i, sid in enumerate(sids)}
-            result["tick_ms"] = time_ms(lambda: svc.push_audio(x), dev)
-            log(f"timing push_audio tick ({n_sessions}x{T_CHUNK} samples, "
-                f"end to end): ms={result['tick_ms']:.4f}")
-            if dev.type == "cuda":
-                profile_tick(lambda: svc.push_audio(x))
+            result["tick_ms"] = time_tick("push_audio", svc, x, dev)
     # small-input reference: the fused forward on the card against the
     # plain versions on the CPU
     _, _, fp = bake_stream_params(params, bn, cfg)
@@ -935,8 +1127,9 @@ def phase_audio(cfg, dev, seed: int = 6):
         stream_state_bytes,
         ws_inference_stats,
     )
+    from repro_torch.kernels import ref
     from repro_torch.kernels.proto_extract import proto_extract
-    from repro_torch.kernels.tcn_block import tcn_block
+    from repro_torch.kernels.tcn_block import tcn_block, tcn_chunk
     from repro_torch.models.tcn import (
         bake_stream_params,
         make_fused_forward,
@@ -970,14 +1163,14 @@ def phase_audio(cfg, dev, seed: int = 6):
     result = {"launches": 0}
     for quantize in (False, True):
         svc = service(quantize, T_CHUNK)
-        tcn_block.launches = proto_extract.launches = 0
+        tcn_block.launches = tcn_chunk.launches = proto_extract.launches = 0
         t0 = time.perf_counter()
-        main, polls = drive(svc, audio, small, shots, enroll_round=0)
+        with counting(ref, PLAIN_CHUNK) as plain:
+            main, polls = drive(svc, audio, small, shots, enroll_round=0)
         secs = time.perf_counter() - t0
-        launches = tcn_block.launches
-        result["launches"] += launches
-        if launches == 0:
-            raise AssertionError("audio: the main path launched no tcn_block")
+        chunk, strip = check_drive_launches(f"audio quantize={quantize}", svc,
+                                            cfg, plain.calls)
+        result["launches"] += chunk + strip
         for s, (e, lg, tl) in main.items():
             if e.shape != (AUDIO_LEN, cfg.embed_dim) or \
                     lg.shape != (AUDIO_LEN, cfg.n_classes):
@@ -996,7 +1189,8 @@ def phase_audio(cfg, dev, seed: int = 6):
         log(f"audio quantize={quantize}: {N_SLOTS} sessions x {AUDIO_LEN} "
             f"samples in {len(small)} ragged rounds, {svc.dispatches} ticks "
             f"of <= {T_CHUNK} in {secs:.1f} s, every ring wrapped (deepest "
-            f"{deepest} rows), tcn_block launches={launches}, enrolled "
+            f"{deepest} rows), tcn_chunk launches={chunk} (one a tick), strip "
+            f"launches={strip} (enrollment), plain chunk calls 0, enrolled "
             f"{polls[0]['n_ways']} ways; outputs finite")
         other_svc = service(quantize, AUDIO_BIG_CHUNK)
         other, _ = drive(other_svc, audio, big, shots, enroll_round=0)
@@ -1019,11 +1213,7 @@ def phase_audio(cfg, dev, seed: int = 6):
             tsvc = service(False, T_CHUNK)
             sids = [tsvc.open_session() for _ in range(N_SLOTS)]
             x = {sid: audio[i, :T_CHUNK] for i, sid in enumerate(sids)}
-            result["tick_ms"] = time_ms(lambda: tsvc.push_audio(x), dev)
-            log(f"timing audio push_audio tick ({N_SLOTS}x{T_CHUNK} samples, "
-                f"end to end): ms={result['tick_ms']:.4f}")
-            if dev.type == "cuda":
-                profile_tick(lambda: tsvc.push_audio(x))
+            result["tick_ms"] = time_tick("audio push_audio", tsvc, x, dev)
             del tsvc
     # 5-way 5-shot enrollment of whole clips through protonet.adapt
     _, _, fp = bake_stream_params(params, bn, cfg)
@@ -1131,6 +1321,8 @@ def main() -> int:
     phase("audio timings", phase_timings, audio_cfg, dev, embed_t=AUDIO_LEN)
     audio = phase("audio", phase_audio, audio_cfg, dev)
     kernels = [
+        # launches of both entries (tcn_chunk and the strip entry); the
+        # times are the serve tick's tcn_chunk launch
         {"name": "tcn_block", "route": "cuda",
          "source": "src/repro_torch/csrc/tcn_block.cu",
          "replaces": "src/repro/kernels/tcn_block.py:166",

@@ -12,14 +12,21 @@ accounting beside it):
 
   * the per-step path (``stream_step`` and its single-session and
     per-chunk wrappers), a Python loop over samples;
-  * the fused chunk (``make_fused_chunk``), one ``tcn_block`` kernel call
-    per block over a whole chunk, fed by the ring taps.
+  * the fused chunk (``make_fused_chunk``): the whole TCN body over a
+    chunk in one ``tcn_chunk`` kernel launch, which reads the ring taps in
+    place and writes only the new ring rows.
 
 Both sum every conv in the kernels' fixed order (``kernels/ref.tap_sum``)
 and apply the head and FC one time step at a time on (S, C) rows, so an
 output never depends on the chunk length: on baked params the two
 executors agree bit for bit, and a stream gives the same bits whatever
 chunks it is pushed in.
+
+Ownership of the rings: every function here is functional, as in the
+reference (a caller's state is never changed), except a fused chunk built
+with ``inplace=True``, which writes the chunk's new ring rows and t into
+the state it is given.  Only a caller that owns its grid asks for that
+(``StreamSessionService``); it saves a pass over every ring per tick.
 """
 
 from __future__ import annotations
@@ -169,31 +176,6 @@ def stream_scan_single(params, bn_state, cfg: ArchConfig, state: dict,
 # Fused chunk executor: whole-chunk block evaluation over ring-buffer taps
 # ---------------------------------------------------------------------------
 
-def _gather_rows(a, idx):
-    """a: (S, L, c); idx: (S, m) row indices -> (S, m, c)."""
-    return torch.gather(a, 1, idx[:, :, None].expand(-1, -1, a.shape[2]))
-
-
-def _ordered_history(ring, t):
-    """Time-order one ring's circular layout.  ring: (S, n, c); t: (S,).
-    Row i of the result is the sample at time t-n+i; rows not yet written
-    read their zero init, which is exactly causal left-padding."""
-    n = ring.shape[1]
-    ar = torch.arange(n, device=ring.device)
-    return _gather_rows(ring, torch.remainder(t.long()[:, None] + ar[None], n))
-
-
-def _ring_advance(strip, t, lengths, n):
-    """New circular ring contents after consuming ``lengths`` samples.
-    strip: (S, n+T, c) time-ordered [history | chunk]; L=0 reproduces the
-    old ring exactly (the inactive-slot freeze), with no branch."""
-    ar = torch.arange(n, device=strip.device)[None]
-    lengths = lengths.long()
-    window = _gather_rows(strip, lengths[:, None] + ar)
-    perm = torch.remainder(ar - (t.long() + lengths)[:, None], n)
-    return _gather_rows(window, perm)
-
-
 def _head_steps(h, head_w, head_b, fc_w, fc_b, qa):
     """Head and FC applied one time step at a time: h (S, T, C) -> (emb
     (S, T, V), logits (S, T, n)).  Every step is the same (S, C) product,
@@ -207,50 +189,45 @@ def _head_steps(h, head_w, head_b, fc_w, fc_b, qa):
 
 
 def make_fused_chunk(cfg: ArchConfig, *, quantize: bool = False,
-                     backend: str | None = None, device="cuda"):
+                     backend: str | None = None, device="cuda",
+                     inplace: bool = False):
     """Build the fused chunk executor (kernel backend resolved ONCE for
     ``device``).
 
     Returns ``fused_chunk(fused_params, states, x, lengths)`` advancing a
-    slot grid over a chunk through kernels/tcn_block.py: ``states`` is
-    the SoA grid (rings (S, n, c), t (S,)); x: (S, T, C_in); lengths:
-    (S,) valid-prefix lengths.  Returns (new_states, embs (S, T, V),
-    logits (S, T, n_classes)); outputs at positions >= lengths are
-    meaningless and the state freezes there."""
-    from repro_torch.kernels.tcn_block import make_block_fn
+    slot grid over a chunk: ``states`` is the SoA grid (rings (S, n, c),
+    t (S,)); x: (S, T, C_in); lengths: (S,) valid-prefix lengths.  Returns
+    (new_states, embs (S, T, V), logits (S, T, n_classes)); outputs at
+    positions >= lengths are meaningless and the state freezes there.
 
-    block_fn = make_block_fn(backend or cfg.kernel_backend,
+    The TCN body is one ``kernels/tcn_block.tcn_chunk`` call: on CUDA
+    tensors one kernel launch for all blocks, reading the rings in place;
+    on CPU tensors its plain version (time-ordered strips through
+    ``tcn_block_fused``, rings re-laid by ``_ring_advance``).  By default
+    the caller's ``states`` stay unchanged (the reference's functional
+    contract: new rings are written to fresh tensors, the untouched rows
+    copied by the kernel, a full pass over the rings).  ``inplace=True``
+    is for a caller that owns the grid: the new rows are written into
+    ``states``' own rings and t, nothing else moves, and ``states`` itself
+    is returned."""
+    from repro_torch.kernels.tcn_block import make_chunk_fn
+
+    chunk_fn = make_chunk_fn(backend or cfg.kernel_backend,
                              require_device(device))
     k = cfg.tcn_kernel
     qa = (lambda a: fake_quant_act_u4(a, cfg.act_scale)) if quantize \
         else (lambda a: a)
 
     def fused_chunk(fused_params, states, x, lengths):
-        t = states["t"]
-        lengths = lengths.to(t.dtype)
-        new_blocks = {}
-        h = x
-        for i in range(len(cfg.tcn_channels)):
-            name = f"b{i}"
-            d = 2 ** i
-            rings = states["blocks"][name]
-            hist2 = _ordered_history(rings["ring2"], t)
-            strip1 = torch.cat([_ordered_history(rings["ring1"], t), h], dim=1)
-            h, mid = block_fn(strip1, hist2, fused_params["blocks"][name],
-                              dilation=d, k=k, act_scale=cfg.act_scale,
-                              quantize=quantize)
-            strip2 = torch.cat([hist2, mid], dim=1)
-            new_blocks[name] = {
-                "ring1": _ring_advance(strip1, t, lengths,
-                                       rings["ring1"].shape[1]),
-                "ring2": _ring_advance(strip2, t, lengths,
-                                       rings["ring2"].shape[1]),
-            }
+        new_states, h = chunk_fn(fused_params["blocks"], states, x,
+                                 lengths.to(states["t"].dtype), k=k,
+                                 act_scale=cfg.act_scale, quantize=quantize,
+                                 inplace=inplace)
         emb, logits = _head_steps(h, expand_weight(fused_params["head_w"]),
                                  fused_params["head_b"],
                                  fused_params["fc"]["w"],
                                  fused_params["fc"]["b"], qa)
-        return {"t": t + lengths, "blocks": new_blocks}, emb, logits
+        return new_states, emb, logits
 
     return fused_chunk
 

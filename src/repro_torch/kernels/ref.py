@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the port's kernels (the correctness contract).
 
-``tcn_block`` and ``proto_extract``'s versions sum in the same fixed order
-as their CUDA kernels — taps j = 0..k-1
+``tcn_block``'s (``tcn_block_fused`` for the strip entry,
+``tcn_chunk_plain`` for the chunk entry) and ``proto_extract``'s versions
+sum in the same fixed order as their CUDA kernels — taps j = 0..k-1
 outside, input channels in order inside, a separately rounded multiply
 and add per term (the kernels use ``__fmul_rn``/``__fadd_rn``, which the
 compiler never contracts into an FMA).  So every output element depends
@@ -75,6 +76,67 @@ def tcn_block_fused(strip1, hist2, p, *, dilation: int, k: int,
     else:
         res = x_cur
     return qa(torch.relu(y2 + res)), y
+
+
+def _gather_rows(a, idx):
+    """a: (S, L, c); idx: (S, m) row indices -> (S, m, c)."""
+    return torch.gather(a, 1, idx[:, :, None].expand(-1, -1, a.shape[2]))
+
+
+def ordered_history(ring, t):
+    """Time-order one ring's circular layout.  ring: (S, n, c); t: (S,).
+    Row i of the result is the sample at time t-n+i; rows not yet written
+    read their zero init, which is exactly causal left-padding."""
+    n = ring.shape[1]
+    ar = torch.arange(n, device=ring.device)
+    return _gather_rows(ring, torch.remainder(t.long()[:, None] + ar[None], n))
+
+
+def ring_advance(strip, t, lengths, n):
+    """New circular ring contents after consuming ``lengths`` samples.
+    strip: (S, n+T, c) time-ordered [history | chunk]; L=0 reproduces the
+    old ring exactly (the inactive-slot freeze), with no branch."""
+    ar = torch.arange(n, device=strip.device)[None]
+    lengths = lengths.long()
+    window = _gather_rows(strip, lengths[:, None] + ar)
+    perm = torch.remainder(ar - (t.long() + lengths)[:, None], n)
+    return _gather_rows(window, perm)
+
+
+def tcn_chunk_plain(blocks, states, x, lengths, *, k: int,
+                    act_scale: float = 0.25, quantize: bool = False,
+                    inplace: bool = False):
+    """The whole TCN body of a slot grid over one chunk: the chunk kernel's
+    plain version.  blocks: {"b<i>": baked block params}; states: the grid
+    ({"t": (S,) int32, "blocks": {"b<i>": {"ring1": (S, n, Cin), "ring2":
+    (S, n, C)}}}, block i's dilation n/(k-1)); x (S, T, Cin); lengths (S,)
+    valid-prefix lengths.  Each block time-orders its rings, runs
+    ``tcn_block_fused`` over [history | chunk] and re-lays the rings.
+    Returns (new_states, h (S, T, C)); ``inplace`` writes the new rings and
+    t into ``states``' tensors and returns ``states``."""
+    t = states["t"]
+    lengths = lengths.to(t.dtype)
+    new_blocks = {}
+    h = x
+    for i in range(len(states["blocks"])):
+        name = f"b{i}"
+        rings = states["blocks"][name]
+        n = rings["ring1"].shape[1]
+        hist2 = ordered_history(rings["ring2"], t)
+        strip1 = torch.cat([ordered_history(rings["ring1"], t), h], dim=1)
+        h, mid = tcn_block_fused(strip1, hist2, blocks[name],
+                                 dilation=n // (k - 1), k=k,
+                                 act_scale=act_scale, quantize=quantize)
+        strip2 = torch.cat([hist2, mid], dim=1)
+        new_blocks[name] = {"ring1": ring_advance(strip1, t, lengths, n),
+                            "ring2": ring_advance(strip2, t, lengths, n)}
+    if not inplace:
+        return {"t": t + lengths, "blocks": new_blocks}, h
+    t.add_(lengths)
+    for name, rings in new_blocks.items():
+        for r, v in rings.items():
+            states["blocks"][name][r].copy_(v)
+    return states, h
 
 
 def tcn_block_ref(strip1, hist2, w1, b1, w2, b2, down_w=None, down_b=None,

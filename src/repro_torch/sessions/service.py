@@ -14,13 +14,20 @@ Concrete services supply ``_pack``/``_unpack``/``_reset``.
 ``push_audio`` takes ragged per-session chunks {sid: (t_i, C_in)}, pads
 them onto the (S, T_chunk) grid and advances every pushed session per
 tick; short chunks and absent sessions stay frozen.  ``fused=True`` (the
-default, so a service on the card runs the ``tcn_block`` kernel) bakes BN
-and the log2 weight quantization once at construction
-(models/tcn.bake_stream_params) and runs each tick through one
-``tcn_block`` kernel call per block; ``fused=False`` runs the plain
-per-step executor, the reference the fused path is tested against.  Enrollment embeds shots through ``make_fused_forward`` on a
-fused service (the ``tcn_block`` kernel again) and through the eval-mode
-forward otherwise.  A parked session resumes bit-exactly in any free slot.
+default, so a service on the card runs the kernels) bakes BN and the
+log2 weight quantization once at construction
+(models/tcn.bake_stream_params) and runs each tick's TCN body through one
+``tcn_chunk`` kernel launch; ``fused=False`` runs the plain per-step
+executor, the reference the fused path is tested against.  Enrollment
+embeds shots through ``make_fused_forward`` on a fused service (the
+``tcn_block`` strip kernel) and through the eval-mode forward otherwise.
+A parked session resumes bit-exactly in any free slot.
+
+The service owns its slot grid (``self.states``): nothing outside it holds
+the grid's tensors, so the fused tick updates the rings and step counters
+in place (``make_grid_fused(inplace=True)``) and moves only the chunk's
+new ring rows, not a copy of every ring; parking copies a slot's column
+out, and resuming writes it back in place.
 
 Counters are plain integers (``dispatches``, ``evictions``, ``enrolls``).
 Not ported yet: the ``SessionService`` protocol verbs (``push``,
@@ -238,7 +245,8 @@ class StreamSessionService(SlotGridService):
             params, bn_state, self._fused_params = bake_stream_params(
                 params, bn_state, cfg, quantize=quantize)
             self._fused_chunk = make_grid_fused(
-                cfg, quantize=quantize, backend=kernel_backend, device=dev)
+                cfg, quantize=quantize, backend=kernel_backend, device=dev,
+                inplace=True)
             fwd = make_fused_forward(cfg, quantize=quantize,
                                      backend=kernel_backend, device=dev)
             self._embed = lambda x: fwd(self._fused_params, x)[0]

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on an
-NVIDIA GPU.  ``tcn_block`` and ``proto_extract`` share their plain
-versions' summation order and are compared bit for bit; ``log2_matmul``
+NVIDIA GPU.  ``tcn_block`` (strip and chunk entries) and
+``proto_extract`` share their plain versions' summation order and are
+compared bit for bit; ``log2_matmul``
 and ``dilated_conv`` are compared at the JAX tests' tolerances with the
 plain products in full fp32 (TF32 switched off around them).
 Marked ``cuda``; every test skips when no card is present.  This file
@@ -22,8 +23,9 @@ from repro_torch.kernels.ref import (  # noqa: E402
     log2_matmul_ref,
     proto_extract_ref,
     tcn_block_fused,
+    tcn_chunk_plain,
 )
-from repro_torch.kernels.tcn_block import tcn_block  # noqa: E402
+from repro_torch.kernels.tcn_block import tcn_block, tcn_chunk  # noqa: E402
 from repro_torch.models.tcn import _bake_weight  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -89,6 +91,78 @@ def test_tcn_block_rejects_bad_operands(dev):
     with pytest.raises(ValueError):
         tcn_block(strip1.transpose(1, 2).contiguous().transpose(1, 2), hist2,
                   p, dilation=1, k=7)
+
+
+# tcn_chunk at the CPU tests' sizes: 4 blocks of C=8, k=7, d = 1..8
+# (rings of 6..48 rows), Cin=2 into block 0
+CHUNK_WIDTHS, CHUNK_K = ((2, 8), (8, 8), (8, 8), (8, 8)), 7
+
+
+def _chunk_case(seed, S, T, *, packed, dev):
+    """Block params, a grid whose step counters sit just before, at and
+    after every ring's wrap, a chunk and ragged lengths (0 and T among
+    them)."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s: torch.tensor(rng.normal(size=s).astype(np.float32)).to(dev)
+    k = CHUNK_K
+    blocks, rings, times = {}, {}, [0]
+    for i, (cin, C) in enumerate(CHUNK_WIDTHS):
+        n = (k - 1) * 2 ** i
+        blocks[f"b{i}"] = _block(seed + i, 1, 1, cin, C, k, 2 ** i,
+                                 packed=packed, with_down=cin != C, dev=dev)[2]
+        rings[f"b{i}"] = {"ring1": f(S, n, cin), "ring2": f(S, n, C)}
+        times += [n - 1, n, n + 1]
+    t = torch.tensor([times[i % len(times)] for i in range(S)],
+                     dtype=torch.int32, device=dev)
+    lengths = torch.tensor(rng.integers(0, T + 1, size=S), dtype=torch.int32,
+                           device=dev)
+    lengths[0], lengths[1] = 0, T
+    return blocks, {"t": t, "blocks": rings}, f(S, T, CHUNK_WIDTHS[0][0]), lengths
+
+
+def _grid_equal(a, b) -> bool:
+    return torch.equal(a["t"], b["t"]) and all(
+        torch.equal(a["blocks"][n][r], b["blocks"][n][r])
+        for n in a["blocks"] for r in ("ring1", "ring2"))
+
+
+def _grid_clone(g):
+    return {"t": g["t"].clone(), "blocks": {
+        n: {r: v.clone() for r, v in d.items()} for n, d in g["blocks"].items()}}
+
+
+@pytest.mark.parametrize("packed,quantize", [(False, False), (False, True),
+                                             (True, False), (True, True)])
+@pytest.mark.parametrize("T", [1, 2, 7, 16, 40])
+def test_tcn_chunk_kernel_matches_plain(dev, T, packed, quantize):
+    blocks, grid, x, lengths = _chunk_case(T, 13, T, packed=packed, dev=dev)
+    kw = dict(k=CHUNK_K, quantize=quantize)
+    want, hr = tcn_chunk_plain(blocks, grid, x, lengths, **kw)
+    before = _grid_clone(grid)
+    launches = tcn_chunk.launches
+    got, h = tcn_chunk(blocks, grid, x, lengths, **kw)
+    torch.cuda.synchronize()
+    assert tcn_chunk.launches == launches + 1
+    assert _grid_equal(grid, before)  # the functional call leaves it alone
+    # same summation order, no FMA contraction: equal bits
+    assert torch.equal(h, hr) and _grid_equal(got, want)
+    out, h2 = tcn_chunk(blocks, grid, x, lengths, inplace=True, **kw)
+    torch.cuda.synchronize()
+    assert tcn_chunk.launches == launches + 2
+    assert out is grid and torch.equal(h2, hr) and _grid_equal(grid, want)
+
+
+def test_tcn_chunk_rejects_a_chunk_too_long(dev):
+    from repro_torch.kernels.tcn_block import max_chunk_len
+
+    widths = [((CHUNK_K - 1) * 2 ** i, cin, C, cin != C)
+              for i, (cin, C) in enumerate(CHUNK_WIDTHS)]
+    T = max_chunk_len(widths, CHUNK_K) + 1
+    blocks, grid, x, lengths = _chunk_case(0, 2, T, packed=False, dev=dev)
+    launches = tcn_chunk.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        tcn_chunk(blocks, grid, x, lengths, k=CHUNK_K)
+    assert tcn_chunk.launches == launches
 
 
 @pytest.mark.parametrize("n_ways,k", [(5, 1), (5, 5), (37, 3)])
