@@ -18,13 +18,18 @@ non-zero):
            enrollment, poll (one tcn_chunk launch per tick and no plain ring
            bookkeeping, counted); then chunk-size invariance (t_chunk 16 vs
            1) and park/resume, bit-exact, for fp32 and quantized services;
+           then one 784-sample tick (t_chunk=784, split into
+           ceil(784/max_chunk_len) tcn_chunk launches) bit for bit equal to
+           t_chunk=16;
   fsl      5-way 1-shot and 5-shot episodes through protonet.adapt;
-  ops      log2_matmul and dilated_conv (repro_torch.kernels.ops) against
+  ops      log2_matmul (both paths: tensor-core tiles, and the decode path
+           for M <= 4) and dilated_conv (repro_torch.kernels.ops) against
            their plain versions at every listed shape (TF32 off), the
            identity decode and the conv's causality bit for bit, their
            times beside torch.matmul / F.conv1d, then the ops entry point
-           driven as a user calls it (kernel_bench's matmul workloads, the
-           chameleon-tcn-audio forward with every conv through the op);
+           driven as a user calls it (kernel_bench's matmul workloads and a
+           decode-shaped one, the chameleon-tcn-audio forward with every
+           conv through the op);
   audio    chameleon-tcn-audio (12 blocks, d up to 2048): tcn_block at its
            serve and enrollment shapes, 64 sessions streaming 1 s clips
            16 samples per tick (every ring wraps) with 5-way 5-shot
@@ -32,16 +37,25 @@ non-zero):
            another ragged schedule) and park/resume bit-exact for fp32 and
            quantized services, a 5-shot episode through protonet.adapt,
            cone_eval against the dense forward, the Fig. 8(c) accounting,
-           and the push tick's latency and profile.
+           the push tick's latency and profile, and one 784-sample tick
+           (ceil(784/max_chunk_len) launches) equal to t_chunk=16.
+
+    python3 chip_smoke.py --compare-with DIR
+
+also builds the log2_matmul.cu and dilated_conv.cu of another tree's
+csrc/ directory DIR (e.g. a parent commit unpacked with git archive) and
+times those kernels beside this tree's at every op shape, in the same
+process on the same card.
 
 Launch counters are zeroed just before each main-path drive and read just
 after.  Each phase prints its wall seconds.  Timings are medians of
-CUDA-event timed, warmed runs; a kernel's ``ms`` is its device time per
-call, from 20 calls captured in a CUDA graph and replayed (no host work
-between the kernels), while ``wrapper_ms`` times the Python wrapper call
-itself.  A push tick's breakdown comes from torch.profiler.  The
-second-to-last line is the kernels JSON, the last the device JSON.  Exits
-with code 2 and prints no result when no CUDA device is present.
+CUDA-event timed, warmed runs; a kernel's ``ms`` and its library call's
+``library_ms`` are device time per call, from 20 calls captured in a
+CUDA graph and replayed (no host work between the kernels), while
+``wrapper_ms`` and ``plain_ms`` time one Python call each.  A push
+tick's breakdown comes from torch.profiler.  The second-to-last line is
+the kernels JSON, the last the device JSON.  Exits with code 2 and prints
+no result when no CUDA device is present.
 """
 
 from __future__ import annotations
@@ -57,9 +71,12 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 # published peaks of one H100 SXM (NVIDIA data sheet): fp32 outside the
-# tensor cores, and HBM3 bandwidth
+# tensor cores, bf16 on the tensor cores (dense), and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_TC_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+PEAK_NAMES = {PEAK_FP32_FLOPS: "fp32 CUDA cores 67 TFLOP/s",
+              PEAK_BF16_TC_FLOPS: "bf16 tensor cores 989 TFLOP/s"}
 
 RTOL, ATOL = 1e-5, 1e-6
 QUANT_STEP = 0.25  # one u4 step at the fixed activation scale
@@ -74,9 +91,11 @@ def log(*a) -> None:
     print(*a, flush=True)
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    """Least time (ms) for the work, and what bounds it."""
-    tb, tf = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FP32_FLOPS * 1e3
+def bound(nbytes: float, flops: float,
+          peak: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
+    """Least time (ms) for the work, and what bounds it: the bytes at the
+    HBM rate or the operations at ``peak`` (the units that run them)."""
+    tb, tf = nbytes / PEAK_BYTES * 1e3, flops / peak * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -502,7 +521,7 @@ def phase_timings(cfg, dev, seed: int = 1, embed_t: int = STREAM_LEN):
         w = torch.matmul(onehot, emb)
         return w, -(w * w).sum(-1) * (1.0 / (2.0 * K_SHOTS))
 
-    pe["library_ms"] = time_ms(library, dev)
+    pe["library_ms"] = device_ms(library, dev)
     nb = (emb.numel() + onehot.numel() + N_WAYS * V + N_WAYS) * 4
     fl = 2 * N_WAYS * len(labels) * V + 2 * N_WAYS * V
     pe["bound_ms"], pe["bound_by"] = bound(nb, fl)
@@ -655,6 +674,49 @@ def time_tick(name, svc, x, dev) -> float:
     return ms
 
 
+def check_long_tick(name, service, audio, cfg) -> int:
+    """One push of STREAM_LEN samples to every session of a
+    t_chunk=STREAM_LEN service: one tick, split by the fused chunk into
+    ceil(STREAM_LEN / max_chunk_len) tcn_chunk launches, counted, and bit
+    for bit equal (outputs and slot grid) to the same push through a
+    t_chunk=T_CHUNK service.  Returns the long tick's launches."""
+    import numpy as np
+    from repro_torch.core.streaming import ring_sizes
+    from repro_torch.kernels.tcn_block import max_chunk_len, tcn_block, tcn_chunk
+
+    limit = max_chunk_len([(rs["ring1"][0], rs["ring1"][1], rs["ring2"][1],
+                            rs["ring1"][1] != rs["ring2"][1])
+                           for rs in ring_sizes(cfg).values()], cfg.tcn_kernel)
+    runs = []
+    for t_chunk in (STREAM_LEN, T_CHUNK):
+        svc = service(False, t_chunk)
+        sids = [svc.open_session() for _ in range(audio.shape[0])]
+        x = {sid: audio[i, :STREAM_LEN] for i, sid in enumerate(sids)}
+        tcn_block.launches = tcn_chunk.launches = 0
+        res = svc.push_audio(x)
+        runs.append(([res[sid] for sid in sids], svc.states, svc.dispatches,
+                     tcn_chunk.launches, tcn_block.launches))
+    (long, lgrid, lticks, llaunch, lstrip), (short, sgrid, sticks, slaunch, _) \
+        = runs
+    want = -(-STREAM_LEN // limit)
+    if (lticks, llaunch, lstrip) != (1, want, 0):
+        raise AssertionError(f"{name} t_chunk={STREAM_LEN}: {lticks} ticks, "
+                             f"{llaunch} tcn_chunk and {lstrip} strip "
+                             f"launches, expected 1 tick of {want}")
+    for a, b in zip(long, short):
+        if not all(np.array_equal(a[k], b[k]) for k in ("emb", "logits")):
+            raise AssertionError(f"{name}: t_chunk {STREAM_LEN} and {T_CHUNK}"
+                                 " differ")
+    if not same_grid(lgrid, sgrid):
+        raise AssertionError(f"{name}: t_chunk {STREAM_LEN} and {T_CHUNK} "
+                             "leave different slot grids")
+    log(f"{name} t_chunk={STREAM_LEN}: {audio.shape[0]} sessions x "
+        f"{STREAM_LEN} samples in one tick of {llaunch} tcn_chunk launches "
+        f"(max_chunk_len {limit}; launches per tick {llaunch}), bit for bit "
+        f"equal to t_chunk={T_CHUNK} ({slaunch} launches in {sticks} ticks)")
+    return llaunch
+
+
 def phase_serve(cfg, dev, seed: int = 0, stream_len: int = STREAM_LEN,
                 n_sessions: int = N_SLOTS):
     import numpy as np
@@ -724,6 +786,7 @@ def phase_serve(cfg, dev, seed: int = 0, stream_len: int = STREAM_LEN,
             sids = [svc.open_session() for _ in range(n_sessions)]
             x = {sid: audio[i, :T_CHUNK] for i, sid in enumerate(sids)}
             result["tick_ms"] = time_tick("push_audio", svc, x, dev)
+    result["launches"] += check_long_tick("serve", service, audio, cfg)
     # small-input reference: the fused forward on the card against the
     # plain versions on the CPU
     _, _, fp = bake_stream_params(params, bn, cfg)
@@ -828,10 +891,12 @@ def phase_fsl(cfg, dev, seed: int = 2, stream_len: int = STREAM_LEN):
 # phase: ops (log2_matmul and dilated_conv, repro_torch.kernels.ops)
 # ---------------------------------------------------------------------------
 
-# (M, K, N): benchmarks/kernel_bench.py's full and smoke sizes, two decode
-# shapes, and tests/test_kernels.py's shapes with ragged tiles
+# (M, K, N): benchmarks/kernel_bench.py's full and smoke sizes, decode
+# shapes (M = 1 and 4 take the decode path), and tests/test_kernels.py's
+# shapes with ragged tiles
 MATMUL_SHAPES = ((256, 2048, 2048), (64, 256, 256), (1, 2048, 2048),
-                 (16, 2048, 8192), (100, 64, 130), (1, 256, 64), (8, 32, 16))
+                 (16, 2048, 8192), (100, 64, 130), (1, 256, 64), (8, 32, 16),
+                 (4, 2048, 8192))
 # tests/test_kernels.py's tolerances: log2_matmul fp32 (bf16 x is upcast
 # exactly on both sides, so the fp32 one applies), dilated_conv
 MATMUL_RTOL, MATMUL_ATOL = 1e-4, 1e-3
@@ -880,6 +945,21 @@ def matmul_work(M, K, N, x_bytes):
     """(bytes, flops) of one log2_matmul: x, packed W and the scale in,
     the fp32 output out."""
     return M * K * x_bytes + K * N // 2 + 4 + M * N * 4, 2 * M * K * N
+
+
+def matmul_bound(M, K, N, x_bytes) -> tuple[float, str, str]:
+    """(bound ms, what bounds it, the peak used) of one log2_matmul: the
+    tile path runs parts * 2MKN bf16 operations on the tensor cores (an
+    fp32 x is three bf16 parts, a bf16 x one), the decode path 2MKN fp32
+    operations on the CUDA cores."""
+    from repro_torch.kernels.log2_matmul import DECODE_MAX_M
+
+    nb, fl = matmul_work(M, K, N, x_bytes)
+    if M <= DECODE_MAX_M:
+        peak = PEAK_FP32_FLOPS
+    else:
+        peak, fl = PEAK_BF16_TC_FLOPS, fl * (3 if x_bytes == 4 else 1)
+    return (*bound(nb, fl, peak), PEAK_NAMES[peak])
 
 
 def conv_work(B, T, Cin, Cout, K):
@@ -980,15 +1060,16 @@ def phase_ops_timings(dev, audio_cfg, seed: int = 4):
                    "library_ms": None}
             if x.dtype == torch.float32:
                 # one PyTorch call on the decoded W; never used by the port
-                row["library_ms"] = time_ms(lambda: torch.matmul(x, w), dev)
-            nb, fl = matmul_work(M, K, N, x.element_size())
-            row["bound_ms"], row["bound_by"] = bound(nb, fl)
+                row["library_ms"] = device_ms(lambda: torch.matmul(x, w), dev)
+            row["bound_ms"], row["bound_by"], row["bound_peak"] = \
+                matmul_bound(M, K, N, x.element_size())
             lib = "null" if row["library_ms"] is None \
                 else f"{row['library_ms']:.4f}"
             log(f"timing log2_matmul {M}x{K}x{N} x={str(x.dtype)[6:]}: "
                 f"ms={row['ms']:.4f} wrapper_ms={row['wrapper_ms']:.4f} "
                 f"plain_ms={row['plain_ms']:.4f} library_ms={lib} "
-                f"bound_ms={row['bound_ms']:.6f} bound_by={row['bound_by']}")
+                f"bound_ms={row['bound_ms']:.6f} bound_by={row['bound_by']} "
+                f"(peak: {row['bound_peak']})")
             if mm is None:  # the kernel_bench size, fp32 x
                 mm = row
     tot = {"ms": 0.0, "wrapper_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
@@ -1009,7 +1090,7 @@ def phase_ops_timings(dev, audio_cfg, seed: int = 4):
         row = {"ms": device_ms(call, dev),
                "wrapper_ms": time_ms(call, dev),
                "plain_ms": time_ms(lambda: dilated_conv_ref(x, w, b, d), dev),
-               "library_ms": time_ms(library, dev)}
+               "library_ms": device_ms(library, dev)}
         nb, fl = conv_work(B, T, Cin, Cout, K)
         bms, by = bound(nb, fl)
         log(f"timing dilated_conv {audio_cfg.name} {name} B={B} T={T} "
@@ -1017,13 +1098,14 @@ def phase_ops_timings(dev, audio_cfg, seed: int = 4):
             f"wrapper_ms={row['wrapper_ms']:.4f} "
             f"plain_ms={row['plain_ms']:.4f} "
             f"library_ms={row['library_ms']:.4f} bound_ms={bms:.6f} "
-            f"bound_by={by}")
+            f"bound_by={by} (peak: {PEAK_NAMES[PEAK_FP32_FLOPS]})")
         for key in row:
             tot[key] += row[key]
         tot["bytes"] += nb
         tot["flops"] += fl
     cb, cby = bound(tot.pop("bytes"), tot.pop("flops"))
     tot["bound_ms"], tot["bound_by"] = cb, cby
+    tot["bound_peak"] = PEAK_NAMES[PEAK_FP32_FLOPS]
     log(f"timing dilated_conv {audio_cfg.name} forward ({len(convs)} convs, "
         f"B={AUDIO_B}, T={AUDIO_LEN}): ms={tot['ms']:.4f} "
         f"wrapper_ms={tot['wrapper_ms']:.4f} plain_ms={tot['plain_ms']:.4f} "
@@ -1064,9 +1146,10 @@ def scaled_close(name, got, want, rtol=2e-4, atol=2e-5) -> float:
 
 def phase_ops_main(dev, audio_cfg, seed: int = 5):
     """The ops entry point as a user calls it: kernel_bench's log2_matmul
-    workloads (bf16 x) and the audio preset's forward over 8 whole clips
-    with every conv through the conv op.  Counters are zeroed just before
-    and read just after."""
+    workloads (bf16 x, the tile path) and a decode-shaped one (the decode
+    path), and the audio preset's forward over 8 whole clips with every
+    conv through the conv op.  Counters are zeroed just before and read
+    just after."""
     import numpy as np
     import torch
     from repro_torch.kernels import make_dilated_conv_op, make_log2_matmul_op
@@ -1078,7 +1161,7 @@ def phase_ops_main(dev, audio_cfg, seed: int = 5):
     rng = np.random.default_rng(seed)
     mm_op, conv_op = make_log2_matmul_op(), make_dilated_conv_op()
     work = []
-    for (M, K, N) in MATMUL_SHAPES[:2]:
+    for (M, K, N) in MATMUL_SHAPES[:3]:
         codes, scale = packed_weight(rng, K, N, dev)
         x = torch.from_numpy(rng.normal(size=(M, K)).astype("float32")).to(
             dev, torch.bfloat16)
@@ -1101,12 +1184,105 @@ def phase_ops_main(dev, audio_cfg, seed: int = 5):
     de, dl = tcn_forward(params, bn, audio_cfg, clips)
     err = max(scaled_close("ops conv forward emb", emb, de),
               scaled_close("ops conv forward logits", logits, dl))
-    log(f"ops main path: 2 log2_matmul workloads and the "
+    log(f"ops main path: {len(work)} log2_matmul workloads (both paths) and the "
         f"{audio_cfg.name} forward over {AUDIO_B}x{AUDIO_LEN} samples "
         f"through the conv op agree with the plain versions (forward max "
         f"abs err {err:.3g}, |emb| up to {de.abs().max().item():.3g}); "
         f"launches {launches}")
     return launches
+
+
+def build_other_ops(csrc: Path):
+    """Compile another tree's log2_matmul.cu and dilated_conv.cu (its csrc/
+    directory) with this tree's nvcc flags into build/compare/ and bind
+    their C entries, which take the arguments this tree's tile-path and
+    conv entries take.  Returns (log2_matmul, dilated_conv)."""
+    import ctypes
+    from repro_torch.kernels import _build
+
+    out = ROOT / "build" / "compare"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in ("log2_matmul", "dilated_conv"):
+        so = out / f"lib{name}.so"
+        procs[name] = (so, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(csrc), "-o", str(so),
+             str(csrc / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    fns = []
+    for name, (so, p) in procs.items():
+        text, _ = p.communicate()
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {csrc / name}.cu:\n{text}")
+        fn = getattr(ctypes.CDLL(str(so)), name)
+        fn.argtypes = [_build.P] * 4 + [_build.I] * (4 if name == "log2_matmul"
+                                                     else 6) + [_build.P]
+        fn.restype = ctypes.c_int
+        fns.append(fn)
+    return tuple(fns)
+
+
+def phase_compare(dev, audio_cfg, fsl_cfg, csrc: Path, seed: int = 7):
+    """The other tree's log2_matmul and dilated_conv kernels beside this
+    tree's, on the same inputs in this process: device ms of both (and of
+    the library call) at every listed op shape; the other kernel's output
+    is held to this tree's at the ops tolerance.  Returns the shapes where
+    this tree's kernel is slower."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.dilated_conv import dilated_conv
+    from repro_torch.kernels.log2_matmul import log2_matmul
+    from repro_torch.quant.log2 import dequantize_log2, unpack_nibbles
+
+    old_mm, old_conv = build_other_ops(csrc)
+    stream = lambda: torch.cuda.current_stream(dev).cuda_stream
+    rng = np.random.default_rng(seed)
+    slower = []
+
+    def one(tag, old, new, library):
+        row = [device_ms(f, dev, n=40, reps=9) for f in (old, new, library)]
+        log(f"compare {tag}: other_ms={row[0]:.5f} this_ms={row[1]:.5f} "
+            f"library_ms={row[2]:.5f}")
+        if row[1] > row[0]:
+            slower.append(tag)
+
+    for (M, K, N) in MATMUL_SHAPES:
+        codes, scale = packed_weight(rng, K, N, dev)
+        w = dequantize_log2(unpack_nibbles(codes), scale)
+        x32 = torch.from_numpy(rng.normal(size=(M, K)).astype("float32")).to(dev)
+        for x in (x32, x32.to(torch.bfloat16)):
+            o = torch.empty((M, N), device=dev)
+            old = lambda: old_mm(x.data_ptr(), codes.data_ptr(), scale.data_ptr(),
+                                 o.data_ptr(), M, K, N,
+                                 int(x.dtype == torch.bfloat16), stream())
+            if old() != 0:
+                raise RuntimeError("the other log2_matmul did not launch")
+            allclose(f"compare log2_matmul {M}x{K}x{N}", o,
+                     log2_matmul(x, codes, scale), MATMUL_RTOL, MATMUL_ATOL)
+            one(f"log2_matmul {M}x{K}x{N} x={str(x.dtype)[6:]}", old,
+                lambda: log2_matmul(x, codes, scale),
+                lambda: torch.matmul(x32, w))
+    shapes = (conv_shapes(audio_cfg, AUDIO_B, AUDIO_LEN)
+              + conv_shapes(fsl_cfg, N_WAYS * K_SHOTS, STREAM_LEN)
+              + [("test", *sh) for sh in CONV_TEST_SHAPES])
+    for (name, B, T, Cin, Cout, K, d) in shapes:
+        x, w, b = conv_inputs(rng, B, T, Cin, Cout, K, dev)
+        o = torch.empty((B, T, Cout), device=dev)
+        old = lambda: old_conv(x.data_ptr(), w.data_ptr(), b.data_ptr(),
+                               o.data_ptr(), B, T, Cin, Cout, K, d, stream())
+        if old() != 0:
+            raise RuntimeError("the other dilated_conv did not launch")
+        allclose(f"compare dilated_conv {name}", o, dilated_conv(x, w, b, d),
+                 CONV_RTOL, CONV_ATOL)
+        xl = F.pad(x, (0, 0, (K - 1) * d, 0)).transpose(1, 2).contiguous()
+        wl = w.permute(2, 1, 0).contiguous()
+        one(f"dilated_conv {name} B={B} T={T} {Cin}->{Cout} K={K} d={d}", old,
+            lambda: dilated_conv(x, w, b, d),
+            lambda: F.conv1d(xl, wl, b, dilation=d))
+    log(f"compare with {csrc}: this tree's kernel is slower at "
+        f"{len(slower)} shapes{': ' + '; '.join(slower) if slower else ''}")
+    return slower
 
 
 # ---------------------------------------------------------------------------
@@ -1215,6 +1391,7 @@ def phase_audio(cfg, dev, seed: int = 6):
             x = {sid: audio[i, :T_CHUNK] for i, sid in enumerate(sids)}
             result["tick_ms"] = time_tick("audio push_audio", tsvc, x, dev)
             del tsvc
+    result["launches"] += check_long_tick("audio", service, audio, cfg)
     # 5-way 5-shot enrollment of whole clips through protonet.adapt
     _, _, fp = bake_stream_params(params, bn, cfg)
     fwd = make_fused_forward(cfg, device=dev)
@@ -1274,8 +1451,15 @@ def phase_audio(cfg, dev, seed: int = 6):
 # ---------------------------------------------------------------------------
 
 def main() -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--compare-with", type=Path, metavar="DIR",
+                    help="another tree's csrc/ directory: time its "
+                         "log2_matmul and dilated_conv beside this tree's")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
@@ -1320,6 +1504,9 @@ def main() -> int:
                        ts=(1, 2, 4, 8, T_CHUNK, AUDIO_LEN))
     phase("audio timings", phase_timings, audio_cfg, dev, embed_t=AUDIO_LEN)
     audio = phase("audio", phase_audio, audio_cfg, dev)
+    if args.compare_with is not None:
+        phase("compare", phase_compare, dev, audio_cfg, cfg,
+              args.compare_with.resolve())
     kernels = [
         # launches of both entries (tcn_chunk and the strip entry); the
         # times are the serve tick's tcn_chunk launch
@@ -1329,13 +1516,14 @@ def main() -> int:
          "launches": serve["launches"] + sum(c[1] for c in fsl.values())
          + audio["launches"],
          "max_abs_err": max(errs["tcn_block"], audio_errs["tcn_block"]),
-         **tb_time},
+         "bound_peak": PEAK_NAMES[PEAK_FP32_FLOPS], **tb_time},
         {"name": "proto_extract", "route": "cuda",
          "source": "src/repro_torch/csrc/proto_extract.cu",
          "replaces": "src/repro/kernels/proto_extract.py:31",
          "launches": sum(c[0] for c in fsl.values())
          + audio["proto_launches"],
-         "max_abs_err": errs["proto_extract"], **pe_time},
+         "max_abs_err": errs["proto_extract"],
+         "bound_peak": PEAK_NAMES[PEAK_FP32_FLOPS], **pe_time},
         {"name": "log2_matmul", "route": "cuda",
          "source": "src/repro_torch/csrc/log2_matmul.cu",
          "replaces": "src/repro/kernels/log2_matmul.py:43",

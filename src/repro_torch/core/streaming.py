@@ -13,8 +13,9 @@ accounting beside it):
   * the per-step path (``stream_step`` and its single-session and
     per-chunk wrappers), a Python loop over samples;
   * the fused chunk (``make_fused_chunk``): the whole TCN body over a
-    chunk in one ``tcn_chunk`` kernel launch, which reads the ring taps in
-    place and writes only the new ring rows.
+    chunk in one ``tcn_chunk`` kernel launch per span of at most
+    ``max_chunk_len`` steps, which reads the ring taps in place and writes
+    only the new ring rows.
 
 Both sum every conv in the kernels' fixed order (``kernels/ref.tap_sum``)
 and apply the head and FC one time step at a time on (S, C) rows, so an
@@ -200,34 +201,55 @@ def make_fused_chunk(cfg: ArchConfig, *, quantize: bool = False,
     (new_states, embs (S, T, V), logits (S, T, n_classes)); outputs at
     positions >= lengths are meaningless and the state freezes there.
 
-    The TCN body is one ``kernels/tcn_block.tcn_chunk`` call: on CUDA
-    tensors one kernel launch for all blocks, reading the rings in place;
-    on CPU tensors its plain version (time-ordered strips through
-    ``tcn_block_fused``, rings re-laid by ``_ring_advance``).  By default
-    the caller's ``states`` stay unchanged (the reference's functional
-    contract: new rings are written to fresh tensors, the untouched rows
-    copied by the kernel, a full pass over the rings).  ``inplace=True``
-    is for a caller that owns the grid: the new rows are written into
-    ``states``' own rings and t, nothing else moves, and ``states`` itself
-    is returned."""
-    from repro_torch.kernels.tcn_block import make_chunk_fn
+    The TCN body is ``kernels/tcn_block.tcn_chunk``: on CUDA tensors one
+    kernel launch for all blocks, reading the rings in place; on CPU
+    tensors its plain version (time-ordered strips through
+    ``tcn_block_fused``, rings re-laid by ``_ring_advance``).  A chunk
+    longer than the kernel's shared memory takes (``max_chunk_len``: 313
+    steps at ``chameleon-tcn``'s widths, 222 at ``chameleon-tcn-audio``'s)
+    is split, on either device, into consecutive spans of at most that
+    length, each span's end state feeding the next; chunk-size invariance
+    makes the split bit-exact.  So a 784-step tick makes ⌈784/313⌉ = 3
+    ``tcn_chunk`` calls on the FSL preset and ⌈784/222⌉ = 4 on the audio
+    preset.  By default the caller's ``states`` stay unchanged (the
+    reference's functional contract: the first span works on copies of
+    the rings, a full pass over them).  ``inplace=True`` is for a caller
+    that owns the grid: the new rows are written into ``states``' own
+    rings and t, nothing else moves, and ``states`` itself is
+    returned."""
+    from repro_torch.kernels.tcn_block import make_chunk_fn, max_chunk_len
 
     chunk_fn = make_chunk_fn(backend or cfg.kernel_backend,
                              require_device(device))
     k = cfg.tcn_kernel
+    span = max(1, max_chunk_len([(rs["ring1"][0], rs["ring1"][1],
+                                  rs["ring2"][1],
+                                  rs["ring1"][1] != rs["ring2"][1])
+                                 for rs in ring_sizes(cfg).values()], k))
     qa = (lambda a: fake_quant_act_u4(a, cfg.act_scale)) if quantize \
         else (lambda a: a)
 
     def fused_chunk(fused_params, states, x, lengths):
-        new_states, h = chunk_fn(fused_params["blocks"], states, x,
-                                 lengths.to(states["t"].dtype), k=k,
+        lengths = lengths.to(states["t"].dtype)
+        T = x.shape[1]
+        hs = []
+        for a in range(0, T, span):
+            b = min(a + span, T)
+            if b - a < T:
+                xs, ls = x[:, a:b].contiguous(), (lengths - a).clamp(0, b - a)
+            else:
+                xs, ls = x, lengths
+            # after the first span the states are this call's own copies
+            states, h = chunk_fn(fused_params["blocks"], states, xs, ls, k=k,
                                  act_scale=cfg.act_scale, quantize=quantize,
-                                 inplace=inplace)
+                                 inplace=inplace or a > 0)
+            hs.append(h)
+        h = hs[0] if len(hs) == 1 else torch.cat(hs, dim=1)
         emb, logits = _head_steps(h, expand_weight(fused_params["head_w"]),
                                  fused_params["head_b"],
                                  fused_params["fc"]["w"],
                                  fused_params["fc"]["b"], qa)
-        return new_states, emb, logits
+        return states, emb, logits
 
     return fused_chunk
 

@@ -5,8 +5,8 @@
 //   q = sign-extended nibble, value = 0 for q == 0,
 //   else sign(q) * 2^(1 - |q|) * scale.
 // 2^(1-|q|) is built from its exponent bits, so the product with the scale
-// is the exact value dequantize_log2 gives.  tcn_block.cu and log2_matmul.cu
-// both decode with it.
+// is the exact value dequantize_log2 gives.  tcn_block.cu decodes with it;
+// log2_matmul.cu fills its tables of P (scale 1) with it.
 #pragma once
 
 #include <cstdint>

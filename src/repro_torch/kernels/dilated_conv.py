@@ -2,10 +2,14 @@
 
 Replaces the Pallas kernel ``repro/kernels/dilated_conv.py::
 dilated_causal_conv`` (body ``_kernel``) with the hand-written CUDA kernel
-in ``csrc/dilated_conv.cu``: T is tiled (the reference kept a whole
-left-padded strip per grid cell, which at 16 kHz raw audio does not fit a
-Hopper block), taps before t = 0 read zero, so the padded input is never
-built.  That source's header says what bounds it on an H100.
+in ``csrc/dilated_conv.cu``: full-fp32 FMA on the CUDA cores over
+dilation-strided tiles (a column of 8 positions d apart stages the K+7
+rows its K taps read once), 256 positions x 24 or 32 output channels per
+CTA, 8 positions x 6 or 8 channels per thread; taps before t = 0 read
+zero, so the padded input is never built.  Each output sums its input channels in
+order, its taps in order inside, so the conv is causal bit for bit and
+repeats bit for bit.  That source's header says what bounds it on an
+H100.
 
 Layouts are the reference's: x (B, T, Cin), w (K, Cin, Cout), b (Cout,)
 -> (B, T, Cout) fp32.  ``dilated_conv`` runs the plain version
@@ -22,7 +26,8 @@ from repro_torch.kernels.ref import dilated_conv_ref
 
 _P, _I = _build.P, _build.I
 _SIGNATURES = {"dilated_conv": [_P, _P, _P, _P] + [_I] * 6 + [_P]}
-_GRID_MAX = 65535  # the kernel's grid: (T/64, Cout/32, B)
+_GRID_MAX = 65535  # the kernel's grid: (ceil(T/8d)*d/32, Cout/24 or /32, B)
+_MAX_K = 256       # taps whose rows fit the kernel's shared memory
 
 
 def _launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -38,9 +43,10 @@ def _launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if min(B, T, Cin, Cout, K) < 1 or dilation < 1:
         raise ValueError(f"empty conv: x {tuple(x.shape)}, w "
                          f"{tuple(w.shape)}, dilation {dilation}")
-    if (K - 1) * dilation + T >= 2 ** 31 or B > _GRID_MAX \
-            or -(-Cout // 32) > _GRID_MAX:
-        raise ValueError("conv too large for the kernel's int32 rows or grid")
+    if (K + 8) * dilation + T >= 2 ** 31 or B > _GRID_MAX \
+            or -(-Cout // 24) > _GRID_MAX or K > _MAX_K:
+        raise ValueError("conv too large for the kernel's int32 rows, grid "
+                         f"or {_MAX_K} taps")
     for t, what in ((x, "x"), (w, "w"), (b, "b")):
         if t.device != dev or t.dtype != torch.float32 \
                 or not t.is_contiguous():

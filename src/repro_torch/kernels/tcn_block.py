@@ -26,7 +26,8 @@ the clones, leaving ``states`` as it was; ``inplace=True`` hands the
 kernel ``states``' own rings and t and returns ``states`` — for a caller
 that owns the grid (the service).  A chunk longer than the kernel's shared
 memory holds raises ``ValueError`` (``max_chunk_len``); there is no
-fallback.
+fallback.  ``make_fused_chunk`` splits a longer serve chunk into spans
+that fit.
 
 ``tcn_block`` — one block over a time-ordered strip: long sequences
 (``models/tcn.make_fused_forward``: FSL episodes, enrollment).  Two

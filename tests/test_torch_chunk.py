@@ -211,8 +211,42 @@ def test_inplace_chunk_equals_functional(quantize):
     _assert_grids_equal(mine, new)
 
 
-def test_chunk_length_limit():
-    """The kernel's shared memory bounds T; the service's chunks fit."""
+def _spans(monkeypatch):
+    """Record the chunk length of every tcn_chunk call (on the CPU the
+    wrapper runs tcn_chunk_plain, looked up through its module)."""
+    from repro_torch.kernels import tcn_block as tb
+
+    seen, plain = [], tb.tcn_chunk_plain
+
+    def counted(blocks, states, x, lengths, **kw):
+        seen.append(x.shape[1])
+        return plain(blocks, states, x, lengths, **kw)
+
+    monkeypatch.setattr(tb, "tcn_chunk_plain", counted)
+    return seen
+
+
+@functools.lru_cache(maxsize=None)
+def _full_width(name, seed=3):
+    """A preset at full width: random params from the reference's init
+    (FC head drawn too, the init zeroes it) and a non-trivial BN state, as
+    the port's CPU tensors."""
+    jcfg = j_get_config(name).replace(kernel_backend="ref")
+    params = jax.tree.map(np.asarray, j_build_bundle(jcfg).init(
+        jax.random.key(seed)))
+    rng = np.random.default_rng(seed)
+    params["fc"]["w"] = (rng.normal(size=params["fc"]["w"].shape)
+                         * 0.1).astype(np.float32)
+    bn = jax.tree.map(lambda a: np.asarray(a) + 0.05 * np.abs(rng.normal(
+        size=a.shape)).astype(np.float32), jt.tcn_empty_state(jcfg))
+    return get_config(name), params_from_jax(params, "cpu"), \
+        params_from_jax(bn, "cpu")
+
+
+def test_chunk_length_limit(monkeypatch):
+    """The kernel's shared memory bounds T; the service's chunks fit, and
+    the fused chunk splits a longer one into spans of at most the limit
+    whose outputs and end state equal one pass of the plain version."""
     for name, limit in (("chameleon-tcn", 313), ("chameleon-tcn-audio", 222)):
         cfg = get_config(name)
         widths = [(rs["ring1"][0], rs["ring1"][1], rs["ring2"][1],
@@ -221,6 +255,60 @@ def test_chunk_length_limit():
         assert max_chunk_len(widths, cfg.tcn_kernel) == limit
         for t_chunk in (16, 160):
             assert chunk_smem_bytes(widths, t_chunk, cfg.tcn_kernel) <= 232_448
+        cfg, p, b = _full_width(name)
+        _, _, fp = tt.bake_stream_params(p, b, cfg)
+        rng = np.random.default_rng(limit)
+        Tl = 2 * limit + 5
+        x = torch.tensor(rng.normal(size=(2, Tl, cfg.tcn_in_channels)
+                                    ).astype(np.float32))
+        lens = torch.tensor([Tl, limit + 3], dtype=torch.int32)
+        grid = tstate.grid_init(cfg, 2, "cpu")
+        seen = _spans(monkeypatch)
+        new, emb, logits = ts.make_fused_chunk(cfg, device="cpu")(
+            fp, grid, x, lens)
+        assert seen == [limit, limit, 5]
+        want, h = tcn_chunk_plain(fp["blocks"], grid, x, lens,
+                                  k=cfg.tcn_kernel, act_scale=cfg.act_scale)
+        _assert_grids_equal(new, want)
+        e1 = torch.relu(h[0] @ fp["head_w"] + fp["head_b"])
+        assert torch.equal(emb[0], e1)
+        assert torch.equal(logits[0], e1 @ fp["fc"]["w"] + fp["fc"]["b"])
+        monkeypatch.undo()
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+def test_long_tick_service_equals_short_ticks(monkeypatch, quantize):
+    """StreamSessionService(t_chunk=784) at chameleon-tcn's full width: one
+    784-sample push is one tick of ⌈784/313⌉ = 3 tcn_chunk calls of at
+    most max_chunk_len, and it equals a t_chunk=16 service bit for bit
+    (embeddings, logits and the slot grid)."""
+    from repro_torch.models import build_tcn_bundle
+    from repro_torch.sessions import StreamSessionService
+
+    cfg, p, b = _full_width("chameleon-tcn")
+    L = 784
+    x = np.random.default_rng(11).normal(
+        size=(2, L, cfg.tcn_in_channels)).astype(np.float32)
+    outs = {}
+    for t_chunk in (L, 16):
+        svc = StreamSessionService(build_tcn_bundle(cfg, "cpu"), p, b,
+                                   n_slots=2, t_chunk=t_chunk,
+                                   quantize=quantize)
+        sids = [svc.open_session() for _ in range(2)]
+        seen = _spans(monkeypatch)
+        res = svc.push_audio({sid: x[i] for i, sid in enumerate(sids)})
+        monkeypatch.undo()
+        outs[t_chunk] = (res, sids, svc)
+        if t_chunk == L:
+            assert svc.dispatches == 1 and seen == [313, 313, 158]
+        else:
+            assert svc.dispatches == L // 16 and set(seen) == {16}
+    (long, ls, lsvc), (short, ss, ssvc) = outs[L], outs[16]
+    for a, c in zip(ls, ss):
+        for key in ("emb", "logits"):
+            assert np.array_equal(long[a][key], short[c][key])
+        assert long[a]["emb"].shape == (L, cfg.embed_dim)
+    _assert_grids_equal(lsvc.states, ssvc.states)
 
 
 def test_service_fused_tick_updates_grid_in_place():

@@ -16,7 +16,10 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.dilated_conv import dilated_conv  # noqa: E402
-from repro_torch.kernels.log2_matmul import log2_matmul  # noqa: E402
+from repro_torch.kernels.log2_matmul import (  # noqa: E402
+    DECODE_MAX_M,
+    log2_matmul,
+)
 from repro_torch.kernels.proto_extract import proto_extract  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
     dilated_conv_ref,
@@ -206,12 +209,73 @@ def test_log2_matmul_kernel_matches_plain(no_tf32, M, K, N, dtype):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M", [1, 4, 16, 64, 100, 256])
+@pytest.mark.parametrize("K,N", [(2048, 2048), (520, 130), (96, 258)])
+def test_log2_matmul_both_paths_match_plain(no_tf32, M, K, N, dtype):
+    """The decode path (M <= DECODE_MAX_M) and the tile path, ragged N
+    (130, 258: not a multiple of a tile or a 16-byte load) included."""
+    dev = no_tf32
+    rng = np.random.default_rng(7 * M + K + N)
+    codes, scale = _packed(rng, K, N, dev)
+    x = torch.tensor(rng.normal(size=(M, K)).astype(np.float32)).to(dev, dtype)
+    got = log2_matmul(x, codes, scale)
+    want = log2_matmul_ref(x, codes, scale)
+    torch.cuda.synchronize()
+    assert (M <= DECODE_MAX_M) == (M in (1, 4))
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 2048, 2048), (4, 2048, 2048),
+                                   (2, 8192, 8192), (3, 300, 130)])
+def test_log2_matmul_decode_path_repeats_and_decodes_exactly(dev, M, K, N):
+    """The decode path gives the same bits on every run (its lanes' and
+    warps' sums are added in a fixed order, no atomics), and rows of the
+    identity give the decoded W bit for bit."""
+    from repro_torch.quant.log2 import dequantize_log2, unpack_nibbles
+
+    rng = np.random.default_rng(M + N)
+    codes, scale = _packed(rng, K, N, dev)
+    x = torch.tensor(rng.normal(size=(M, K)).astype(np.float32)).to(dev)
+    first = log2_matmul(x, codes, scale)
+    for _ in range(3):
+        assert torch.equal(log2_matmul(x, codes, scale), first)
+    rows = torch.from_numpy(rng.choice(K, size=M, replace=False)).to(dev)
+    eye = torch.eye(K, device=dev)[rows]
+    w = dequantize_log2(unpack_nibbles(codes), scale)
+    assert torch.equal(log2_matmul(eye, codes, scale), w[rows])
+    assert torch.equal(log2_matmul(eye.to(torch.bfloat16), codes, scale),
+                       w[rows])
+
+
 def test_log2_matmul_identity_decodes_bit_exact(dev):
     from repro_torch.quant.log2 import dequantize_log2, unpack_nibbles
 
     codes, scale = _packed(np.random.default_rng(0), 256, 256, dev)
     got = log2_matmul(torch.eye(256, device=dev), codes, scale)
     assert torch.equal(got, dequantize_log2(unpack_nibbles(codes), scale))
+
+
+@pytest.mark.parametrize("d", [1, 64, 2048])
+@pytest.mark.parametrize("Cin", [1, 24])
+def test_dilated_conv_audio_shapes_match_plain(no_tf32, Cin, d):
+    """The audio preset's 24-channel convs (K=7, Cout=24) over 1 s clips,
+    held to the plain version and causal bit for bit."""
+    dev = no_tf32
+    B, T, K = 2, 16_000, 7
+    rng = np.random.default_rng(d + Cin)
+    f = lambda *s: torch.tensor(rng.normal(size=s).astype(np.float32)).to(dev)
+    x, w, b = f(B, T, Cin), f(K, Cin, 24) * (K * Cin) ** -0.5, f(24) * 0.1
+    got = dilated_conv(x, w, b, d)
+    torch.testing.assert_close(got, dilated_conv_ref(x, w, b, d), rtol=1e-4,
+                               atol=1e-4)
+    t0 = T - 3 * d // 2 - 5
+    x2 = x.clone()
+    x2[:, t0:] = -7.0
+    y2 = dilated_conv(x2, w, b, d)
+    assert torch.equal(y2[:, :t0], got[:, :t0])
+    assert not torch.equal(y2[:, t0:], got[:, t0:])
+    assert torch.equal(dilated_conv(x, w, b, d), got)
 
 
 @pytest.mark.parametrize("B,T,Cin,Cout,K,d", [
@@ -247,3 +311,46 @@ def test_new_kernels_reject_bad_operands(dev):
         dilated_conv(torch.ones(1, 5, 3, device=dev), w, torch.zeros(4, device=dev), 1)
     with pytest.raises(ValueError):
         dilated_conv(torch.ones(1, 5, 2, device=dev), w, torch.zeros(4), 1)
+
+
+@pytest.mark.parametrize("name,limit", [("chameleon-tcn", 313),
+                                        ("chameleon-tcn-audio", 222)])
+def test_service_long_tick_equals_short_ticks(dev, name, limit):
+    """StreamSessionService(t_chunk=784) on the card: one whole 784-sample
+    push per session is one tick of ⌈784/limit⌉ tcn_chunk launches, bit
+    for bit equal to t_chunk=16 (embeddings, logits, slot grid)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_tcn_bundle
+    from repro_torch.sessions import StreamSessionService
+
+    cfg = get_config(name)
+    bundle = build_tcn_bundle(cfg, dev)
+    params = bundle.init(torch.Generator().manual_seed(5))
+    params["fc"]["w"] = torch.randn(
+        params["fc"]["w"].shape, generator=torch.Generator().manual_seed(6)
+    ).to(dev)
+    from repro_torch.models.tcn import tcn_empty_state
+
+    bn = tcn_empty_state(cfg, dev)
+    L = 784
+    x = np.random.default_rng(8).normal(
+        size=(3, L, cfg.tcn_in_channels)).astype(np.float32)
+    runs = []
+    for t_chunk in (L, 16):
+        svc = StreamSessionService(bundle, params, bn, n_slots=3,
+                                   t_chunk=t_chunk)
+        sids = [svc.open_session() for _ in range(3)]
+        before = tcn_chunk.launches
+        res = svc.push_audio({sid: x[i] for i, sid in enumerate(sids)})
+        torch.cuda.synchronize()
+        ticks = 1 if t_chunk == L else L // 16
+        per_tick = -(-L // limit) if t_chunk == L else 1
+        assert svc.dispatches == ticks
+        assert tcn_chunk.launches - before == ticks * per_tick
+        runs.append(([res[s] for s in sids], svc.states))
+    (long, lg), (short, sg) = runs
+    for a, b in zip(long, short):
+        assert np.isfinite(a["emb"]).all()
+        for key in ("emb", "logits"):
+            assert np.array_equal(a[key], b[key])
+    assert _grid_equal(lg, sg)

@@ -65,6 +65,109 @@ def test_log2_matmul_identity_decodes_exactly():
     assert torch.equal(got, w)
 
 
+def _split3(x: torch.Tensor):
+    """The kernel's exact split of fp32 x into three bf16 parts: hi keeps
+    the top 16 bits of x, mid the top 16 of x - hi, lo what is left."""
+    top = lambda v: (v.view(torch.int32) & -65536).view(torch.float32)
+    hi = top(x)
+    r = x - hi
+    mid = top(r)
+    return hi, mid, r - mid
+
+
+def _code_bf16(c: int) -> int:
+    """bf16 bits of P for a 4-bit code, as the kernels build them from the
+    nibble: sign << 15 | (128 - |q|) << 7, 0 for code 0."""
+    neg = c >> 3
+    a = 16 - c if neg else c
+    return (neg << 15) | ((128 - a) << 7) if c else 0
+
+
+def _decoded_p(packed: np.ndarray) -> torch.Tensor:
+    """P (K, N) fp32 from nibble-packed codes through the bf16 bit rule."""
+    lo, hi = packed & 0xF, packed >> 4
+    codes = np.stack([lo, hi], axis=-1).reshape(packed.shape[0], -1)
+    bits = np.array([_code_bf16(c) for c in range(16)], np.uint16)[codes]
+    return torch.from_numpy(bits.view(np.int16)).view(torch.bfloat16).float()
+
+
+def _contract(x: torch.Tensor, packed: np.ndarray, scale) -> torch.Tensor:
+    """The kernels' arithmetic in plain tensors: scale * sum over the bf16
+    parts of x (three for fp32 x, one for bf16) of part @ P in fp32."""
+    p = _decoded_p(packed)
+    parts = _split3(x) if x.dtype == torch.float32 else (x.float(),)
+    acc = None
+    for part in parts:
+        assert torch.equal(part.to(torch.bfloat16).float(), part)
+        acc = part @ p if acc is None else acc + part @ p
+    return acc * torch.tensor(scale)
+
+
+def test_bf16_split_reproduces_fp32_exactly():
+    """hi + mid + lo == x bit for bit, each part exact in bf16, over values
+    with random 24-bit significands and exponents spanning 2^-100..2^100,
+    both signs, zero and powers of two."""
+    rng = np.random.default_rng(16)
+    sig = (rng.integers(2 ** 23, 2 ** 24, size=20000) / 2.0 ** 23)
+    x = rng.choice([-1.0, 1.0], size=20000) * np.ldexp(
+        sig, rng.integers(-100, 101, size=20000))
+    x = np.concatenate([x, [0.0, 1.0, -2.0 ** -90, 2.0 ** 100,
+                            1 + 2.0 ** -23, -(2 - 2.0 ** -22)]])
+    xt = torch.from_numpy(x.astype(np.float32))
+    assert torch.equal(xt.double(), torch.from_numpy(x))  # exact in fp32
+    hi, mid, lo = _split3(xt)
+    for part in (hi, mid, lo):
+        assert torch.equal(part.to(torch.bfloat16).float(), part)
+    assert torch.equal((hi + (mid + lo)).view(torch.int32),
+                       xt.view(torch.int32))
+    assert (lo != 0).any() and (mid != 0).any()
+
+
+@pytest.mark.parametrize("scale", [0.37, 3.0e-3])
+def test_nibble_bf16_bits_equal_dequantized_codes(scale):
+    """The direct nibble -> bf16 bit rule equals dequantize_log2(code) /
+    scale, in both packages, for all 16 codes."""
+    from repro.quant.log2 import dequantize_log2 as j_dequant
+    from repro_torch.quant.log2 import dequantize_log2, unpack_nibbles
+
+    packed = np.array([[lo | hi << 4 for lo in range(16) for hi in (lo, 15 - lo)]],
+                      dtype=np.uint8)
+    got = _decoded_p(packed)
+    s = torch.tensor(np.float32(scale))
+    codes = unpack_nibbles(torch.from_numpy(packed))
+    assert sorted(set(codes.flatten().tolist())) == list(range(-8, 8))
+    assert torch.equal(got, dequantize_log2(codes, s) / s)
+    jw = np.array(j_dequant(jnp.asarray(codes.numpy()), jnp.float32(scale)))
+    assert torch.equal(got, torch.from_numpy(jw) / s)
+
+
+@pytest.mark.parametrize("M,K,N", [(8, 32, 16), (100, 64, 130),
+                                   (256, 128, 512), (1, 256, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_log2_matmul_contract_matches_reference(M, K, N, dtype):
+    """scale * sum_parts (x_part @ P), the kernels' bit contract, against
+    the Pallas kernel in interpret mode at test_log2_matmul_matches_
+    reference's shapes and tolerance; rows of the identity give the
+    decoded weights bit for bit."""
+    rng = np.random.default_rng(M + N + 1)
+    packed, s = _packed(rng, K, N)
+    x = rng.normal(size=(M, K)).astype(np.float32)
+    want = j_log2_matmul(jnp.asarray(x, getattr(jnp, dtype)),
+                         jnp.asarray(packed), jnp.float32(s), bm=64, bn=64,
+                         interpret=True)
+    got = _contract(torch.from_numpy(x).to(getattr(torch, dtype)), packed, s)
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=tol,
+                               atol=tol * 10)
+    from repro_torch.quant.log2 import dequantize_log2, unpack_nibbles
+
+    rows = rng.choice(K, size=min(M, K), replace=False)
+    eye = torch.eye(K)[torch.from_numpy(rows)].to(getattr(torch, dtype))
+    w = dequantize_log2(unpack_nibbles(torch.from_numpy(packed)),
+                        torch.tensor(s))
+    assert torch.equal(_contract(eye, packed, s), w[torch.from_numpy(rows)])
+
+
 @pytest.mark.parametrize("B,T,Cin,Cout,K,d", [
     (2, 37, 4, 8, 3, 1), (3, 128, 16, 32, 7, 4), (1, 200, 8, 100, 2, 16),
     (2, 64, 28, 24, 3, 2), (2, 20, 4, 100, 7, 8), (1, 50, 1, 24, 1, 1)])
