@@ -22,6 +22,21 @@ non-zero):
            ceil(784/max_chunk_len) tcn_chunk launches) bit for bit equal to
            t_chunk=16;
   fsl      5-way 1-shot and 5-shot episodes through protonet.adapt;
+  cl       the paper's continual-learning demo on two chameleon-tcn services
+           (paged and dense tenant banks, rehearsal on): tenant A learns 250
+           ways x 10 shots of 784-sample clips one way at a time (every 10th
+           way refined through label=), with a 64-session tick over 4
+           tenants after every 25 ways, paged == dense bit for bit at every
+           check and argmax agreement with l2_classify; then tenant B parked
+           and resumed, a tenant growing past the 48-block pool
+           (PoolExhausted, an AdmissionError), rehearse_tenant, and an
+           export/adopt round trip between the layouts, each followed by a
+           bit-exact tick; enrollment latency, the 250-way tick beside an
+           8-way one (profiled), and the 250-way tick beside the same tick
+           with each slot's FC rows gathered again every step;
+  kws      chameleon-tcn-kws (4 blocks of 24, k=3, 28 MFCC channels): the
+           kernels phase at its shapes, then the serve phase's checks (no
+           784-sample tick: 63-frame windows) and its tick;
   ops      log2_matmul (both paths: tensor-core tiles, and the decode path
            for M <= 4) and dilated_conv (repro_torch.kernels.ops) against
            their plain versions at every listed shape (TF32 off), the
@@ -53,7 +68,9 @@ CUDA-event timed, warmed runs; a kernel's ``ms`` and its library call's
 ``library_ms`` are device time per call, from 20 calls captured in a
 CUDA graph and replayed (no host work between the kernels), while
 ``wrapper_ms`` and ``plain_ms`` time one Python call each.  A push
-tick's breakdown comes from torch.profiler.  The second-to-last line is
+tick's breakdown comes from torch.profiler.  An empty kernel's device
+time per launch, timed as ``ms`` is, is the launch floor every kernel
+time sits on.  The second-to-last line is
 the kernels JSON, the last the device JSON.  Exits with code 2 and prints
 no result when no CUDA device is present.
 """
@@ -338,11 +355,12 @@ def compare(name, got, want, quantized: bool) -> float:
 # ---------------------------------------------------------------------------
 
 def phase_kernels(cfg, dev, seed: int = 0, embed_t: int = STREAM_LEN,
-                  ts=(1, 2, 4, 8, T_CHUNK, STREAM_LEN)):
+                  ts=(1, 2, 4, 8, T_CHUNK, STREAM_LEN),
+                  embed_s=(K_SHOTS, N_WAYS * K_SHOTS)):
     """Every shape the main path gives a kernel: serve ticks of T_CHUNK and
-    the power-of-two buckets of ragged remainders (S=64), the enrollment
-    embeds of one way's shots (S=5) and a 5-shot episode (S=25), whose
-    clips are ``embed_t`` long."""
+    the power-of-two buckets of ragged remainders (S=64), and the embeds
+    of ``embed_t``-long clips at each batch in ``embed_s``: one way's shots
+    (S=5, and S=10 in the cl phase) and a 5-shot episode (S=25)."""
     import numpy as np
     import torch
     from repro_torch.kernels.proto_extract import proto_extract
@@ -355,8 +373,7 @@ def phase_kernels(cfg, dev, seed: int = 0, embed_t: int = STREAM_LEN,
     n_cases = 0
     for (i, d, Cin, C, has_down) in block_shapes(cfg):
         for (S, T) in [(s, t) for t in ts for s in (
-                (K_SHOTS, N_WAYS * K_SHOTS) if t == embed_t
-                else (N_SLOTS,))]:
+                embed_s if t == embed_t else (N_SLOTS,))]:
             for packed in (False, True):
                 for quantize in (False, True):
                     strip1, hist2, p = block_inputs(
@@ -655,7 +672,7 @@ def check_drive_launches(name, svc, cfg, plain_calls) -> tuple[int, int]:
     return chunk, strip
 
 
-def time_tick(name, svc, x, dev) -> float:
+def time_tick(name, svc, x, dev, top: int = 10) -> float:
     """One push_audio tick: exactly one tcn_chunk launch and no strip
     launch; then its end-to-end latency and, on the card, its profile."""
     from repro_torch.kernels.tcn_block import tcn_block, tcn_chunk
@@ -670,7 +687,7 @@ def time_tick(name, svc, x, dev) -> float:
     log(f"timing {name} tick ({len(x)}x{T_CHUNK} samples, end to end, one "
         f"tcn_chunk launch): ms={ms:.4f}")
     if dev.type == "cuda":
-        profile_tick(lambda: svc.push_audio(x))
+        profile_tick(lambda: svc.push_audio(x), top=top, name=name)
     return ms
 
 
@@ -718,7 +735,11 @@ def check_long_tick(name, service, audio, cfg) -> int:
 
 
 def phase_serve(cfg, dev, seed: int = 0, stream_len: int = STREAM_LEN,
-                n_sessions: int = N_SLOTS):
+                n_sessions: int = N_SLOTS, shot_len: int | None = None,
+                long_tick: bool = True):
+    """``n_sessions`` ragged streams of ``stream_len`` samples with 5-way
+    5-shot enrollment of ``shot_len``-sample clips; invariance and
+    park/resume; the tick; and, with ``long_tick``, one STREAM_LEN tick."""
     import numpy as np
     import torch
     from repro_torch.kernels import ref
@@ -731,7 +752,7 @@ def phase_serve(cfg, dev, seed: int = 0, stream_len: int = STREAM_LEN,
     bundle, params, bn = make_model(cfg, dev, seed)
     audio = rng.normal(size=(n_sessions, stream_len, cfg.tcn_in_channels)
                        ).astype(np.float32)
-    shots = rng.normal(size=(N_WAYS, K_SHOTS, stream_len,
+    shots = rng.normal(size=(N_WAYS, K_SHOTS, shot_len or stream_len,
                              cfg.tcn_in_channels)).astype(np.float32)
     schedule = make_schedule(rng, n_sessions, stream_len)
 
@@ -746,7 +767,7 @@ def phase_serve(cfg, dev, seed: int = 0, stream_len: int = STREAM_LEN,
         tcn_block.launches = tcn_chunk.launches = proto_extract.launches = 0
         with counting(ref, PLAIN_CHUNK) as plain:
             main, polls = drive(svc, audio, schedule, shots)
-        chunk, strip = check_drive_launches(f"serve quantize={quantize}", svc,
+        chunk, strip = check_drive_launches(f"serve {cfg.name} quantize={quantize}", svc,
                                             cfg, plain.calls)
         if not quantize:
             result["launches"] = chunk + strip
@@ -765,28 +786,30 @@ def phase_serve(cfg, dev, seed: int = 0, stream_len: int = STREAM_LEN,
             raise AssertionError("serve: enrollment did not reach tenant 0")
         if any(p["steps"] != stream_len for p in polls):
             raise AssertionError("serve: a session lost steps")
-        log(f"serve quantize={quantize}: {n_sessions} sessions x {stream_len}"
+        log(f"serve {cfg.name} quantize={quantize}: {n_sessions} sessions x {stream_len}"
             f" samples in {len(schedule)} ragged rounds, {svc.dispatches} "
             f"ticks, tcn_chunk launches={chunk} (one a tick), strip "
             f"launches={strip} (enrollment), plain chunk calls 0, enrolled "
             f"{polls[0]['n_ways']} ways; outputs finite")
         one, _ = drive(service(quantize, 1), audio, schedule, shots)
         if not same_outputs(main, one):
-            raise AssertionError(f"serve quantize={quantize}: t_chunk "
+            raise AssertionError(f"serve {cfg.name} quantize={quantize}: t_chunk "
                                  f"{T_CHUNK} and 1 differ")
         parked_svc = service(quantize, T_CHUNK)
         parked, _ = drive(parked_svc, audio, schedule, shots, park_every=4)
         if not same_outputs(main, parked):
-            raise AssertionError(f"serve quantize={quantize}: park/resume "
+            raise AssertionError(f"serve {cfg.name} quantize={quantize}: park/resume "
                                  "changed the outputs")
-        log(f"serve quantize={quantize}: chunk-size invariance (t_chunk "
+        log(f"serve {cfg.name} quantize={quantize}: chunk-size invariance (t_chunk "
             f"{T_CHUNK} vs 1) and park/resume ({parked_svc.evictions} "
             "evictions) bit-exact")
         if not quantize:
             sids = [svc.open_session() for _ in range(n_sessions)]
             x = {sid: audio[i, :T_CHUNK] for i, sid in enumerate(sids)}
-            result["tick_ms"] = time_tick("push_audio", svc, x, dev)
-    result["launches"] += check_long_tick("serve", service, audio, cfg)
+            result["tick_ms"] = time_tick(f"{cfg.name} push_audio", svc, x,
+                                          dev)
+    if long_tick:
+        result["launches"] += check_long_tick("serve", service, audio, cfg)
     # small-input reference: the fused forward on the card against the
     # plain versions on the CPU
     _, _, fp = bake_stream_params(params, bn, cfg)
@@ -804,10 +827,11 @@ def phase_serve(cfg, dev, seed: int = 0, stream_len: int = STREAM_LEN,
     return result
 
 
-def profile_tick(fn, ticks: int = 10, top: int = 10) -> None:
+def profile_tick(fn, ticks: int = 10, top: int = 10,
+                 name: str = "push_audio") -> dict:
     """Where a tick's time goes: torch.profiler over ``ticks`` calls,
     device busy time per tick against the profiled wall time, and the ops
-    that take the most device time."""
+    that take the most device time.  Returns the tick's numbers."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -829,7 +853,7 @@ def profile_tick(fn, ticks: int = 10, top: int = 10) -> None:
     launches = sum(e.count for e in events
                    if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
                                 "cudaLaunchKernelExC")) / ticks
-    log(f"profile push_audio tick: wall_ms={wall:.4f} (profiled) "
+    log(f"profile {name} tick: wall_ms={wall:.4f} (profiled) "
         f"device_busy_ms={busy:.4f} device_idle_share="
         f"{1 - busy / wall:.4f} kernel_launches_per_tick={launches:.1f}")
     for e in sorted(on_dev, key=lambda e: e.self_device_time_total,
@@ -837,6 +861,7 @@ def profile_tick(fn, ticks: int = 10, top: int = 10) -> None:
         log(f"  profile device op {e.key[:70]!r}: device_ms_per_tick="
             f"{e.self_device_time_total / 1e3 / ticks:.4f} calls_per_tick="
             f"{e.count / ticks:.1f}")
+    return {"wall_ms": wall, "busy_ms": busy, "launches": launches}
 
 
 def _to(tree, dev):
@@ -885,6 +910,317 @@ def phase_fsl(cfg, dev, seed: int = 2, stream_len: int = STREAM_LEN):
             f"proto_extract launches={counts[k][0]} tcn_block "
             f"launches={counts[k][1]}")
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phase: cl (the paper's continual-learning demo on paged and dense banks)
+# ---------------------------------------------------------------------------
+
+# benchmarks/cl_curve.py's served configuration: 250 ways learned one at a
+# time with 10 shots each, 16-way bank blocks, 8 rehearsal shots a class;
+# a 48-block pool (3 x 16 blocks) shared by 4 tenants
+CL_WAYS, CL_SHOTS, CL_BLOCK_WAYS, CL_BLOCKS, CL_CAP = 250, 10, 16, 48, 8
+CL_TENANTS, CL_CHECK_EVERY, CL_REFINE_EVERY = 4, 25, 10
+# embedded ways of tenants B (16 blocks) and C (8 blocks)
+CL_B_WAYS, CL_C_WAYS = 250, 128
+KWS_WINDOW = 63  # chameleon-tcn-kws's MFCC frames per window (§IV-C)
+
+
+def cl_service(bundle, params, bn, paged, max_ways, block_ways, blocks):
+    """A CL service over the serve phase's grid (``blocks=None``: the
+    service's default pool, max_tenants x ceil(max_ways / block_ways))."""
+    from repro_torch.sessions import StreamSessionService
+
+    return StreamSessionService(
+        bundle, params, bn, n_slots=N_SLOTS, max_tenants=N_TENANTS,
+        max_ways=max_ways, t_chunk=T_CHUNK, fused=True, paged_bank=paged,
+        bank_block_ways=block_ways, bank_blocks=blocks, rehearsal_cap=CL_CAP)
+
+
+def percentile_ms(seconds, q) -> float:
+    import numpy as np
+
+    return float(np.percentile(np.asarray(seconds) * 1e3, q))
+
+
+def phase_cl(cfg, dev, seed: int = 8, ways: int = CL_WAYS,
+             clip_len: int = STREAM_LEN):
+    """Two services driven with the same calls, one with paged banks and
+    one with dense banks; every tick's outputs equal bit for bit.  Returns
+    the drive's tcn_block launches (both entries, both services)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.protonet import l2_classify, pn_logits_banked
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.tcn_block import tcn_block, tcn_chunk
+    from repro_torch.sessions import AdmissionError, PoolExhausted
+
+    rng = np.random.default_rng(seed)
+    bundle, params, bn = make_model(cfg, dev, seed)
+    V, c_in = cfg.embed_dim, cfg.tcn_in_channels
+    A, B, C, D = range(CL_TENANTS)
+    svcs = {name: cl_service(bundle, params, bn, name == "paged", ways,
+                             CL_BLOCK_WAYS, CL_BLOCKS)
+            for name in ("paged", "dense")}
+    paged = svcs["paged"]
+    sids = {name: {} for name in svcs}  # session index -> sid
+    tenant_of = {}
+    ways_of = dict.fromkeys(range(CL_TENANTS), 0)
+    lat = {name: [] for name in svcs}
+    ticked = []  # the tags of the ticks run
+
+    def open_(i, tenant):
+        for name, svc in svcs.items():
+            sids[name][i] = svc.open_session(tenant=tenant)
+        tenant_of[i] = tenant
+
+    def close_tenant(tenant):
+        for i in [i for i, t in tenant_of.items() if t == tenant]:
+            for name, svc in svcs.items():
+                svc.close(sids[name].pop(i))
+            del tenant_of[i]
+        for svc in svcs.values():
+            svc.close_tenant(tenant)
+        ways_of[tenant] = 0
+
+    def enroll(tenant, shots, *, timed=False, **kw):
+        got = set()
+        for name, svc in svcs.items():
+            sync(dev)
+            t0 = time.perf_counter()
+            got.add(svc.enroll_shots(sids[name][tenant], shots, **kw))
+            sync(dev)
+            if timed:
+                lat[name].append(time.perf_counter() - t0)
+        if len(got) != 1:
+            raise AssertionError(f"cl: the services enrolled ways {got}")
+        way = got.pop()
+        ways_of[tenant] = max(ways_of[tenant], way + 1)
+        return way
+
+    def embedded(n):
+        return rng.normal(size=(n, CL_SHOTS, V)).astype(np.float32)
+
+    def tick(tag):
+        ticked.append(tag)
+        idx = sorted(tenant_of)
+        x = rng.normal(size=(len(idx), T_CHUNK, c_in)).astype(np.float32)
+        outs = {}
+        for name, svc in svcs.items():
+            res = svc.push_audio({sids[name][i]: x[j]
+                                  for j, i in enumerate(idx)})
+            outs[name] = {i: res[sids[name][i]] for i in idx}
+        for i in idx:
+            p, d = outs["paged"][i], outs["dense"][i]
+            for key in ("emb", "logits", "tenant_logits"):
+                if (p[key] is None) != (d[key] is None) or (
+                        p[key] is not None and not np.array_equal(p[key],
+                                                                  d[key])):
+                    raise AssertionError(f"cl {tag}: session {i} {key}: "
+                                         "paged and dense differ")
+            n, tl = ways_of[tenant_of[i]], p["tenant_logits"]
+            if not np.isfinite(p["emb"]).all() or (n and (
+                    tl.shape != (T_CHUNK, ways)
+                    or not np.isfinite(tl[:, :n]).all()
+                    or not np.isneginf(tl[:, n:]).all())):
+                raise AssertionError(f"cl {tag}: session {i} (tenant "
+                                     f"{tenant_of[i]}, {n} ways) not finite "
+                                     "on its ways and -inf past them")
+        return outs
+
+    def agreement(outs) -> tuple[int, int]:
+        """Tenant A's tenant-logit argmax against l2_classify over A's
+        prototypes s/k on the same embeddings; a disagreement must be a
+        near tie (squared distances equal to 1e-4 of their scale)."""
+        blob = paged.export_tenant(A)
+        protos = torch.from_numpy(blob["s_sums"] / blob["counts"][:, None])
+        mine = [i for i in sorted(outs["paged"]) if tenant_of[i] == A]
+        emb = np.concatenate([outs["paged"][i]["emb"] for i in mine])
+        pred = np.concatenate([outs["paged"][i]["tenant_logits"]
+                               for i in mine]).argmax(-1)
+        cls, d2 = l2_classify(torch.from_numpy(emb).to(dev), protos.to(dev))
+        cls, d2 = cls.cpu().numpy(), d2.cpu().numpy()
+        scale = (emb ** 2).sum(-1) + (protos.numpy() ** 2).sum(-1).max()
+        for r in np.nonzero(pred != cls)[0]:
+            if abs(d2[r, pred[r]] - d2[r, cls[r]]) > 1e-4 * scale[r]:
+                raise AssertionError(f"cl: step {r} classified {pred[r]}, "
+                                     f"l2_classify {cls[r]}, not a near tie")
+        return int((pred == cls).sum()), len(pred)
+
+    for s in range(N_SLOTS):
+        open_(s, s % CL_TENANTS)
+    start = {name: svc.dispatches for name, svc in svcs.items()}
+    tcn_block.launches = tcn_chunk.launches = 0
+    t_drive = time.perf_counter()
+    with counting(ref, PLAIN_CHUNK) as plain:
+        for n_ways, tenant in ((CL_B_WAYS, B), (CL_C_WAYS, C)):
+            for e in embedded(n_ways):
+                enroll(tenant, e, embedded=True)
+        checks = []
+        for j in range(ways):  # the demo: one way at a time, raw clips
+            clips = rng.normal(size=(CL_SHOTS, clip_len, c_in)
+                               ).astype(np.float32)
+            if enroll(A, clips, label=j, timed=True) != j:
+                raise AssertionError(f"cl: way {j} enrolled elsewhere")
+            if j % CL_REFINE_EVERY == CL_REFINE_EVERY - 1:
+                more = rng.normal(size=clips.shape).astype(np.float32)
+                if enroll(A, more, label=j, timed=True) != j:
+                    raise AssertionError(f"cl: the refine of way {j} moved")
+            if (j + 1) % CL_CHECK_EVERY == 0:
+                checks.append(agreement(tick(f"{j + 1} ways")))
+        bp = paged.bankpool
+        live, packed_b = bp.pool.n_live, bp.pack(B)
+        for i in [i for i, t in tenant_of.items() if t == B]:
+            paged.park(sids["paged"][i])
+        b_blocks = -(-CL_B_WAYS // CL_BLOCK_WAYS)
+        if bp.is_resident(B) or live - bp.pool.n_live != b_blocks:
+            raise AssertionError(f"cl: parking B freed {live - bp.pool.n_live}"
+                                 f" blocks, expected {b_blocks}")
+        parked_live = bp.pool.n_live
+        tick("B resumed")  # the dense service never parked: the control
+        if not bp.is_resident(B) or bp.pack(B) != packed_b:
+            raise AssertionError("cl: B's rows changed through park/resume")
+        n_d = bp.pool.n_free * CL_BLOCK_WAYS
+        for e in embedded(n_d):
+            enroll(D, e, embedded=True)
+        extra = embedded(1)[0]
+        try:
+            paged.enroll_shots(sids["paged"][D], extra, embedded=True)
+        except PoolExhausted as e:
+            exhausted = e
+        else:
+            raise AssertionError(f"cl: way {n_d + 1} of D fit a full pool")
+        if not isinstance(exhausted, AdmissionError) or \
+                bp.n_ways[D] != n_d or bp.pool.n_free != 0:
+            raise AssertionError("cl: exhaustion is not back-pressure")
+        close_tenant(C)
+        enroll(D, extra, embedded=True)  # C's blocks came back to the pool
+        tick("C closed, D past the full pool")
+        for svc in svcs.values():
+            if svc.rehearse_tenant(A) != ways:
+                raise AssertionError("cl: rehearse_tenant rebuilt too few")
+        tick("A rehearsed")
+        close_tenant(D)
+        blobs = {name: svc.export_tenant(A) for name, svc in svcs.items()}
+        same_blob(blobs["paged"], blobs["dense"], "cl export of A")
+        svcs["dense"].adopt_tenant(C, blobs["paged"])
+        paged.adopt_tenant(C, blobs["dense"])
+        if bp.is_resident(C):
+            raise AssertionError("cl: the paged bank adopted C resident")
+        for s in range(C, N_SLOTS, CL_TENANTS):
+            open_(s, C)
+        ways_of[C] = ways
+        tick("A adopted as C across the layouts")
+        for name, svc in svcs.items():
+            same_blob(svc.export_tenant(C), blobs["paged"],
+                      f"cl {name} re-export of the adopted tenant")
+    drive_s = time.perf_counter() - t_drive
+    ticks = sum(svc.dispatches - start[name] for name, svc in svcs.items())
+    chunk, strip = tcn_chunk.launches, tcn_block.launches
+    raw = 2 * (ways + ways // CL_REFINE_EVERY)
+    if chunk != ticks or strip != raw * len(cfg.tcn_channels) or \
+            any(plain.calls.values()):
+        raise AssertionError(f"cl: {chunk} tcn_chunk launches in {ticks} "
+                             f"ticks, {strip} strip launches for {raw} raw "
+                             f"enrolls, plain chunk calls {plain.calls}")
+    agree, total = sum(c[0] for c in checks), sum(c[1] for c in checks)
+    st = paged.stats()
+    log(f"cl {cfg.name}: tenant A learned {ways} ways x {CL_SHOTS} shots of "
+        f"{clip_len}-sample clips one way at a time ({ways // CL_REFINE_EVERY}"
+        f" refined through label=) on a paged (bank_block_ways="
+        f"{CL_BLOCK_WAYS}, bank_blocks={CL_BLOCKS}) and a dense service; "
+        f"{len(ticked)} ticks of up to {N_SLOTS}x{T_CHUNK} samples over "
+        f"{CL_TENANTS} tenants, paged == dense bit for bit at every check; "
+        f"argmax agrees with l2_classify on {agree} of {total} steps (the "
+        f"rest near ties); B parked ({parked_live} blocks live, {b_blocks} "
+        "out) and resumed bit-exact; D's way past the full pool raised "
+        f"PoolExhausted ({type(exhausted).__mro__[1].__name__}), and fit "
+        "after close_tenant; rehearse_tenant and export/adopt between the "
+        f"layouts bit-exact; {drive_s:.1f} s; tcn_chunk launches={chunk} "
+        f"(one a tick), strip launches={strip} ({raw} raw enrolls), plain "
+        "chunk calls 0")
+    for name in svcs:
+        log(f"timing cl {name} enroll_shots ({len(lat[name])} raw enrolls of "
+            f"{CL_SHOTS}x{clip_len} samples, host clock to "
+            f"torch.cuda.synchronize): p50_ms={percentile_ms(lat[name], 50):.4f}"
+            f" p99_ms={percentile_ms(lat[name], 99):.4f}")
+    log(f"cl pool: {', '.join(f'{k}={v}' for k, v in st.items() if k.startswith('bank_pool_'))}"
+        f", tenant_row_bytes={st['tenant_row_bytes']} (one block); rehearsal "
+        f"bytes paged={st['rehearsal_bytes']} dense="
+        f"{svcs['dense'].stats()['rehearsal_bytes']} (tenant A "
+        f"{paged.rehearsal.nbytes(A)})")
+    # the ticks, 64 sessions x 16 samples each: 250 ways (also with the FC
+    # rows gathered again every step, in the fixed-order contraction and
+    # in torch.einsum, for comparison) beside 8 ways
+    for s in range(D, N_SLOTS, CL_TENANTS):
+        open_(s, A)
+    x = rng.normal(size=(N_SLOTS, T_CHUNK, c_in)).astype(np.float32)
+    pushes = {name: {sids[name][i]: x[i] for i in range(N_SLOTS)}
+              for name in svcs}
+    result = {"launches": chunk + strip}
+    for name, svc in svcs.items():
+        result[f"{name}_tick_ms"] = time_tick(f"cl {name} {ways}-way", svc,
+                                              pushes[name], dev, top=5)
+    e = torch.randn((N_SLOTS, T_CHUNK, V), device=dev)
+    w, b = paged._slot_fc()
+    ids = torch.arange(N_SLOTS, device=dev)
+
+    def per_step_regather(emb, w, b):
+        return torch.stack([pn_logits_banked(emb[:, i].contiguous(), w, b, ids)
+                            for i in range(emb.shape[1])], dim=1)
+
+    if not torch.equal(paged._banked(e, w, b), per_step_regather(e, w, b)):
+        raise AssertionError("cl: the gathered-once tick differs from the "
+                             "per-step regather")
+    def per_step_einsum(emb, w, b):
+        # the tick before the fixed-order contraction: each step indexed
+        # the rows again and contracted them with torch.einsum (timed
+        # only: its bits depend on N)
+        return torch.stack([torch.einsum("sv,snv->sn", emb[:, i], w[ids])
+                            + b[ids] for i in range(emb.shape[1])], dim=1)
+
+    if dev.type == "cuda":
+        push = lambda: paged.push_audio(pushes["paged"])
+        forms = {"gathered once": None, "per-step regather": per_step_regather,
+                 "per-step einsum": per_step_einsum}
+        for form in list(forms) + list(forms)[::-1]:
+            if forms[form] is not None:
+                paged._banked = forms[form]
+            profile_tick(push, top=3, name=f"cl paged {ways}-way, tenant FC "
+                         f"{form}")
+            paged.__dict__.pop("_banked", None)
+    small = {name: cl_service(bundle, params, bn, name == "paged", 8, 8, None)
+             for name in svcs}
+    for name, svc in small.items():
+        ssids = [svc.open_session(tenant=s % CL_TENANTS)
+                 for s in range(N_SLOTS)]
+        erng = np.random.default_rng(seed + 1)
+        for t in range(CL_TENANTS):
+            for _ in range(8):
+                svc.enroll_shots(ssids[t], erng.normal(size=(CL_SHOTS, V)),
+                                 embedded=True)
+        result[f"{name}_tick8_ms"] = time_tick(
+            f"cl {name} 8-way", svc, {sid: x[i] for i, sid in enumerate(ssids)},
+            dev, top=5)
+    return result
+
+
+def same_blob(a: dict, b: dict, tag: str) -> None:
+    """Two export_tenant blobs hold the same sums, counts, labels and
+    rehearsal bytes."""
+    import numpy as np
+
+    if a["n_ways"] != b["n_ways"] or a["labels"] != b["labels"] or not all(
+            np.array_equal(a[k], b[k]) for k in ("s_sums", "counts")):
+        raise AssertionError(f"{tag}: the tenant's rows differ")
+    ra, rb = a.get("rehearsal", {}), b.get("rehearsal", {})
+    if ra.keys() != rb.keys() or any(
+            ra[w]["seen"] != rb[w]["seen"] or len(ra[w]["shots"]) != len(
+                rb[w]["shots"]) or any(
+                not np.array_equal(p, q) or s != t
+                for (p, s), (q, t) in zip(ra[w]["shots"], rb[w]["shots"]))
+            for w in ra):
+        raise AssertionError(f"{tag}: the rehearsal reservoirs differ")
 
 
 # ---------------------------------------------------------------------------
@@ -1389,7 +1725,8 @@ def phase_audio(cfg, dev, seed: int = 6):
             tsvc = service(False, T_CHUNK)
             sids = [tsvc.open_session() for _ in range(N_SLOTS)]
             x = {sid: audio[i, :T_CHUNK] for i, sid in enumerate(sids)}
-            result["tick_ms"] = time_tick("audio push_audio", tsvc, x, dev)
+            result["tick_ms"] = time_tick(f"{cfg.name} push_audio", tsvc, x,
+                                          dev)
             del tsvc
     result["launches"] += check_long_tick("audio", service, audio, cfg)
     # 5-way 5-shot enrollment of whole clips through protonet.adapt
@@ -1449,6 +1786,58 @@ def phase_audio(cfg, dev, seed: int = 6):
 
 
 # ---------------------------------------------------------------------------
+# the launch floor: device time of a kernel that does nothing
+# ---------------------------------------------------------------------------
+
+EMPTY_KERNEL = r"""
+#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int launch_empty(void* stream) {
+  empty_kernel<<<1, 1, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def start_empty_build():
+    """Start nvcc on an empty kernel (with the port's flags, beside the
+    port's own builds); returns (library, process)."""
+    from repro_torch.kernels import _build
+
+    out = ROOT / "build" / "launch_floor"
+    out.mkdir(parents=True, exist_ok=True)
+    src, so = out / "empty.cu", out / "libempty.so"
+    src.write_text(EMPTY_KERNEL)
+    return so, subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def launch_floor(build, dev) -> float:
+    """Device ms per launch of the empty kernel, timed as every kernel's
+    ``ms`` is (``device_ms``: 20 launches captured in a CUDA graph)."""
+    import ctypes
+
+    import torch
+
+    so, proc = build
+    text, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for the empty kernel:\n{text}")
+    fn = ctypes.CDLL(str(so)).launch_empty
+    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+
+    def call():
+        if fn(torch.cuda.current_stream(dev).cuda_stream) != 0:
+            raise RuntimeError("the empty kernel did not launch")
+
+    ms = device_ms(call, dev)
+    log(f"launch floor: an empty kernel (1 thread) takes device ms={ms:.5f}"
+        " a launch, timed as every kernel's ms (CUDA-graph replay)")
+    return ms
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import argparse
@@ -1474,6 +1863,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
+    empty = start_empty_build()
     libs = _build.build_all()
     log(f"build: {len(libs)} kernel libraries in "
         f"{time.perf_counter() - t0:.1f} s into {_build.build_dir()}")
@@ -1482,8 +1872,10 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
     dev = torch.device("cuda")
+    floor_ms = launch_floor(empty, dev)
     cfg = get_config("chameleon-tcn")
     audio_cfg = get_config("chameleon-tcn-audio")
+    kws_cfg = get_config("chameleon-tcn-kws")
 
     def phase(name, fn, *args, **kw):
         t = time.perf_counter()
@@ -1491,10 +1883,17 @@ def main() -> int:
         log(f"phase {name}: {time.perf_counter() - t:.1f} s")
         return out
 
-    errs = phase("kernels", phase_kernels, cfg, dev)
+    errs = phase("kernels", phase_kernels, cfg, dev,
+                 embed_s=(K_SHOTS, CL_SHOTS, N_WAYS * K_SHOTS))
     tb_time, pe_time = phase("timings", phase_timings, cfg, dev)
     serve = phase("serve", phase_serve, cfg, dev)
     fsl = phase("fsl", phase_fsl, cfg, dev)
+    cl = phase("cl", phase_cl, cfg, dev)
+    kws_errs = phase("kws kernels", phase_kernels, kws_cfg, dev,
+                     embed_t=KWS_WINDOW, ts=(1, 2, 4, 8, T_CHUNK, KWS_WINDOW))
+    kws = phase("kws serve", phase_serve, kws_cfg, dev,
+                stream_len=4 * KWS_WINDOW, shot_len=KWS_WINDOW,
+                long_tick=False)
     op_errs = phase("ops", phase_ops, dev, audio_cfg, cfg)
     mm_time, conv_time = phase("ops timings", phase_ops_timings, dev,
                                audio_cfg)
@@ -1514,8 +1913,9 @@ def main() -> int:
          "source": "src/repro_torch/csrc/tcn_block.cu",
          "replaces": "src/repro/kernels/tcn_block.py:166",
          "launches": serve["launches"] + sum(c[1] for c in fsl.values())
-         + audio["launches"],
-         "max_abs_err": max(errs["tcn_block"], audio_errs["tcn_block"]),
+         + cl["launches"] + kws["launches"] + audio["launches"],
+         "max_abs_err": max(errs["tcn_block"], audio_errs["tcn_block"],
+                            kws_errs["tcn_block"]),
          "bound_peak": PEAK_NAMES[PEAK_FP32_FLOPS], **tb_time},
         {"name": "proto_extract", "route": "cuda",
          "source": "src/repro_torch/csrc/proto_extract.cu",
@@ -1523,7 +1923,8 @@ def main() -> int:
          "launches": sum(c[0] for c in fsl.values())
          + audio["proto_launches"],
          "max_abs_err": errs["proto_extract"],
-         "bound_peak": PEAK_NAMES[PEAK_FP32_FLOPS], **pe_time},
+         "bound_peak": PEAK_NAMES[PEAK_FP32_FLOPS], **pe_time,
+         "launch_floor_ms": floor_ms},
         {"name": "log2_matmul", "route": "cuda",
          "source": "src/repro_torch/csrc/log2_matmul.cu",
          "replaces": "src/repro/kernels/log2_matmul.py:43",

@@ -56,13 +56,59 @@ def pn_logits(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
     return x @ w.T + b[None, :]
 
 
+def sum_last(p: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in an order fixed by its length alone:
+    pairwise halving (the upper half added to the lower, an odd last
+    element carried to the next level), one elementwise add per level.
+    Each add rounds once per element on every device, so a row's sum does
+    not depend on the other axes' sizes, on the batch or on the device.
+    A library product or reduction promises none of that: torch's einsum
+    over (S, V) x (S, N, V) gives other bits at N=250 than at N=256 on the
+    CPU, which would break paged == dense (their table widths differ)."""
+    while p.shape[-1] > 1:
+        h = p.shape[-1] // 2
+        s = p[..., :h] + p[..., h:2 * h]
+        p = torch.cat([s, p[..., 2 * h:]], dim=-1) if p.shape[-1] % 2 else s
+    return p[..., 0]
+
+
+#: most fp32 elements one (S, T', N, V) product of ``pn_logits_rows`` may
+#: hold (64 MiB): a 16-step tick of 64 slots x 256 ways x V=64 is one group
+ROWS_PRODUCT_ELEMS = 1 << 24
+
+
+def pn_logits_rows(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
+    """Each query row against its own FC rows, already gathered: x (S, V)
+    or (S, T, V) (T steps of each row); w (S, N, V); b (S, N).  Returns
+    (S, N) or (S, T, N).  Products and sums are elementwise in a fixed
+    order (``sum_last``), so a step's logits have the same bits whatever
+    N, S or T.  Steps go in groups whose product stays within
+    ``ROWS_PRODUCT_ELEMS``, so a long chunk does not build all its steps'
+    products at once."""
+    if x.dim() == 2:
+        return sum_last(x[:, None, :] * w) + b
+    S, T, V = x.shape
+    g = max(1, ROWS_PRODUCT_ELEMS // max(1, S * w.shape[1] * V))
+    if T <= g:
+        return sum_last(x[:, :, None, :] * w[:, None]) + b[:, None]
+    return torch.cat([pn_logits_rows(x[:, t:t + g], w, b)
+                      for t in range(0, T, g)], dim=1)
+
+
 def pn_logits_banked(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                      bank_ids: torch.Tensor):
     """Each query row classifies against its own bank's FC rows.  x (S, V);
     w (T, N, V); b (T, N); bank_ids (S,) (negative ids clamp to 0 —
     callers mask those rows).  Returns (S, N)."""
     ids = torch.clamp(bank_ids.long(), 0, w.shape[0] - 1)
-    return torch.einsum("sv,snv->sn", x, w[ids]) + b[ids]
+    return pn_logits_rows(x, w[ids], b[ids])
+
+
+def l2_classify(x: torch.Tensor, prototypes: torch.Tensor):
+    """Oracle: argmin_j ||P_j - x||^2 (tests and chip checks only).
+    Returns (argmin (B,), squared distances (B, N))."""
+    d2 = torch.square(x[:, None, :] - prototypes[None]).sum(dim=-1)
+    return torch.argmin(d2, dim=-1), d2
 
 
 # ---------------------------------------------------------------------------
@@ -143,7 +189,7 @@ def store_fc(store: PrototypeStore):
     W_j = s_j/k_j, b_j = -||W_j||^2/2 (the store allows unequal counts).
     Unlearned rows get bias -inf so they never win the argmax."""
     w = store.s_sums / torch.clamp(store.counts, min=1.0)[..., None]
-    b = -(w * w).sum(dim=-1) / 2.0
+    b = -sum_last(w * w) / 2.0
     live = torch.arange(store.s_sums.shape[-2], device=w.device) \
         < store.n_ways[..., None]
     return w, torch.where(live, b, torch.full_like(b, -math.inf))

@@ -1,6 +1,6 @@
 """Request-loop façades over the streaming slot grid.
 
-The port of ``repro/sessions/service.py``, dense-bank half:
+The port of ``repro/sessions/service.py``, TCN half:
 
 ``SlotGridService`` is the service-agnostic core: a fixed slot grid,
 admission control and LRU/cost eviction (sessions/scheduler), a host-side
@@ -23,6 +23,18 @@ embeds shots through ``make_fused_forward`` on a fused service (the
 ``tcn_block`` strip kernel) and through the eval-mode forward otherwise.
 A parked session resumes bit-exactly in any free slot.
 
+Tenant banks are dense (``TenantBank``, max_tenants x max_ways rows) or,
+with ``paged_bank=True``, paged (sessions/bankpool.py): way rows are
+allocated a block at a time from a shared pool as a tenant enrolls, and a
+tenant none of whose sessions is bound holds zero device rows (its blocks
+park to host and come back on its next push or enroll).  At equal way
+counts the two layouts give the same tenant logits bit for bit.  With
+``rehearsal_cap > 0`` every enrolled shot is also offered to a bounded u4
+rehearsal buffer (sessions/rehearsal.py) and ``rehearse_tenant`` rebuilds
+a tenant's prototypes from it.  ``export_tenant``/``adopt_tenant`` move a
+tenant's learned state (running sums, labels, reservoirs) between
+services of either layout.
+
 The service owns its slot grid (``self.states``): nothing outside it holds
 the grid's tensors, so the fused tick updates the rings and step counters
 in place (``make_grid_fused(inplace=True)``) and moves only the chunk's
@@ -31,9 +43,8 @@ out, and resuming writes it back in place.
 
 Counters are plain integers (``dispatches``, ``evictions``, ``enrolls``).
 Not ported yet: the ``SessionService`` protocol verbs (``push``,
-``enroll``), cost-aware eviction options, paged banks, the rehearsal
-buffer, spill/restore and handoff, meshes, in-dispatch device counters,
-metrics and trace.
+``enroll``), cost-aware eviction options, spill/restore and the session
+handoff verbs, meshes, in-dispatch device counters, metrics and trace.
 """
 
 from __future__ import annotations
@@ -44,12 +55,14 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.core.protonet import pn_logits_banked
+from repro_torch.core.protonet import pn_logits_rows
 from repro_torch.models.tcn import (
     bake_stream_params,
     make_fused_forward,
     tcn_empty_state,
 )
+from repro_torch.sessions.bankpool import PagedBankPool, paged_bank_fc
+from repro_torch.sessions.rehearsal import RehearsalBuffer
 from repro_torch.sessions.scheduler import AdmissionError, SlotScheduler
 from repro_torch.sessions.state import (
     grid_init,
@@ -66,7 +79,9 @@ from repro_torch.sessions.tenancy import (
     bank_clear_tenant,
     bank_fc,
     bank_init,
+    bank_pack_tenant,
     bank_row_bytes,
+    bank_unpack_tenant,
     bank_update_class,
 )
 
@@ -120,6 +135,11 @@ class SlotGridService:
     def _on_unbind(self, slot: int) -> None:
         pass
 
+    def _on_evict(self, sid: int, slot: int) -> None:
+        """``sid`` was just packed off ``slot`` to make room for another
+        session.  Distinct from ``_on_unbind`` (park/close), which fires
+        when a slot goes idle: an evicted slot is re-occupied at once."""
+
     def _on_close(self, sid: int, sess) -> None:
         pass
 
@@ -134,6 +154,7 @@ class SlotGridService:
         if evicted is not None:
             self.parking[evicted] = self._pack(slot, evicted)
             self.evictions += 1
+            self._on_evict(evicted, slot)
         if sid in self.parking:
             self._unpack(slot, self.parking.pop(sid))
         elif self.sessions[sid].steps == 0:
@@ -228,7 +249,9 @@ class StreamSessionService(SlotGridService):
                  max_tenants: int = 8, max_ways: int = 8,
                  max_sessions: int | None = None, quantize: bool = False,
                  t_chunk: int = 16, fused: bool = True,
-                 kernel_backend: str | None = None):
+                 kernel_backend: str | None = None,
+                 paged_bank: bool = False, bank_block_ways: int = 4,
+                 bank_blocks: int | None = None, rehearsal_cap: int = 0):
         super().__init__(n_slots, t_chunk=t_chunk, max_sessions=max_sessions)
         cfg = bundle.cfg
         dev = bundle.device
@@ -256,13 +279,29 @@ class StreamSessionService(SlotGridService):
         self._params = params
         self._bn = bn_state
         self.states = grid_init(cfg, n_slots, dev)
-        self.bank = bank_init(max_tenants, max_ways, cfg.embed_dim, dev)
+        # Bank layout: the dense (T, max_ways, V) table, or the paged pool
+        # where max_ways is the per-tenant growth cap (rounded up to whole
+        # blocks) rather than a pre-paid allocation
+        self.paged_bank = bool(paged_bank)
+        if self.paged_bank:
+            mtb = -(-max_ways // bank_block_ways)
+            if bank_blocks is None:
+                bank_blocks = max_tenants * mtb
+            self.bankpool = PagedBankPool(bank_blocks, bank_block_ways,
+                                          cfg.embed_dim, mtb, dev)
+            self.bank = None
+        else:
+            self.bankpool = None
+            self.bank = bank_init(max_tenants, max_ways, cfg.embed_dim, dev)
         self.tenant_of_slot = np.full(n_slots, NO_TENANT, np.int32)
         self._free_tenants = list(range(max_tenants))
         self._tenant_ways = np.zeros(max_tenants, np.int32)  # host mirror
         # label-keyed enrollment: repeated enroll(label=...) calls fold
         # into ONE way's running mean
         self._tenant_labels: dict[int, dict] = {}
+        # bounded latent-replay memory (sessions/rehearsal.py)
+        self.rehearsal = RehearsalBuffer(rehearsal_cap) \
+            if rehearsal_cap > 0 else None
 
     # -- slot-column state hooks --------------------------------------------
     def _pack(self, slot: int, sid: int) -> dict:
@@ -279,19 +318,52 @@ class StreamSessionService(SlotGridService):
         self.tenant_of_slot[slot] = self.sessions[sid].tenant
 
     def _on_unbind(self, slot: int) -> None:
+        tenant = int(self.tenant_of_slot[slot])
         self.tenant_of_slot[slot] = NO_TENANT
+        self._maybe_park_tenant(tenant)
+
+    def _on_evict(self, sid: int, slot: int) -> None:
+        # the eviction path bypasses _on_unbind (the slot is re-occupied at
+        # once), but the paged bank must still learn when a tenant's LAST
+        # bound session left the grid
+        self._maybe_park_tenant(int(self.tenant_of_slot[slot]))
 
     # -- tenants ------------------------------------------------------------
+    def _tenant_idle(self, tenant: int) -> bool:
+        """True when no BOUND session belongs to ``tenant``."""
+        return all(self.sessions[sid].tenant != tenant
+                   for sid in self.sched.slot_of)
+
+    def _maybe_park_tenant(self, tenant: int) -> None:
+        """Paged mode: spill an idle tenant's bank rows to host, so a tenant
+        with no bound session holds zero device rows."""
+        if (self.paged_bank and tenant != NO_TENANT
+                and self.bankpool.is_resident(tenant)
+                and self._tenant_idle(tenant)):
+            self.bankpool.park(tenant)
+
+    def _ensure_bank_resident(self, tenant: int) -> None:
+        if self.paged_bank and not self.bankpool.is_resident(tenant):
+            self.bankpool.unpark(tenant)  # may raise PoolExhausted
+
     def create_tenant(self) -> int:
         if not self._free_tenants:
             raise RuntimeError("tenant bank full")
-        return self._free_tenants.pop(0)
+        tenant = self._free_tenants.pop(0)
+        if self.paged_bank:
+            self.bankpool.create(tenant)
+        return tenant
 
     def close_tenant(self, tenant: int) -> None:
         if any(s.tenant == tenant for s in self.sessions.values()):
             raise RuntimeError(f"tenant {tenant} still has open sessions")
-        self.bank = bank_clear_tenant(self.bank, tenant)
+        if self.paged_bank:
+            self.bankpool.drop(tenant)
+        else:
+            self.bank = bank_clear_tenant(self.bank, tenant)
         self._tenant_labels.pop(tenant, None)
+        if self.rehearsal is not None:
+            self.rehearsal.drop(tenant)
         self._tenant_ways[tenant] = 0
         self._free_tenants.append(tenant)
 
@@ -309,12 +381,16 @@ class StreamSessionService(SlotGridService):
                                  f"[0, {len(self._tenant_ways)})")
             if tenant in self._free_tenants:  # claim an uncreated row
                 self._free_tenants.remove(tenant)
+                if self.paged_bank:
+                    self.bankpool.create(tenant)
                 claimed = True
         sid = self._alloc_sid()
         try:
             self.sched.admit(sid)  # may raise AdmissionError (back-pressure)
         except AdmissionError:
             if claimed:  # don't leak the tenant row on refused admission
+                if self.paged_bank:
+                    self.bankpool.drop(tenant)
                 self._free_tenants.insert(0, tenant)
             raise
         self.sessions[sid] = _Session(tenant=tenant, dedicated=dedicated)
@@ -333,21 +409,42 @@ class StreamSessionService(SlotGridService):
                 self.close_tenant(sess.tenant)
 
     # -- the hot path -------------------------------------------------------
-    def _banked(self, emb: torch.Tensor, tenant_ids: torch.Tensor):
-        """Tenant logits (S, T, max_ways), one time step at a time so a
-        step's bits do not depend on the tick length."""
+    def _slot_fc(self):
+        """Each slot's tenant FC rows, gathered once per push: W (S, N, V),
+        b (S, N), N = max_ways (dense) or the block-granular table width
+        (paged).  Dense rows come from ``bank_fc`` indexed by each slot's
+        tenant (slots without one clamp to row 0; their tenant logits are
+        never returned); paged rows from ``paged_bank_fc`` through the slot
+        tables, built on the host and copied to the device in one piece."""
+        if self.paged_bank:
+            tables, ways = self.bankpool.slot_tables(self.tenant_of_slot)
+            tw = torch.from_numpy(
+                np.concatenate([tables, ways[:, None]], axis=1)).to(self.device)
+            return paged_bank_fc(self.bankpool.s_sums, self.bankpool.counts,
+                                 tw[:, :-1], tw[:, -1])
         w, b = bank_fc(self.bank)
-        return torch.stack([pn_logits_banked(emb[:, i].contiguous(), w, b,
-                                             tenant_ids)
-                            for i in range(emb.shape[1])], dim=1)
+        ids = torch.from_numpy(
+            np.clip(self.tenant_of_slot, 0, w.shape[0] - 1).astype(np.int64)
+        ).to(self.device)
+        return w[ids], b[ids]
+
+    @staticmethod
+    def _banked(emb: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
+        """Tenant logits (S, T, N) of every step of the tick against the
+        rows ``_slot_fc`` gathered.  The contraction is elementwise in a
+        fixed order (``pn_logits_rows``), so a step's bits are those of the
+        step alone: they do not depend on the tick length, nor on the table
+        width N, which differs between the dense and paged layouts."""
+        return pn_logits_rows(emb, w, b)
 
     def push_audio(self, chunks: dict[int, Any]) -> dict[int, dict]:
         """Advance sessions by ragged time chunks.
 
         chunks: {sid: x}, x a (t_i, C_in) chunk or a single (C_in,) sample.
         Returns {sid: result}: per-sample emb (t_i, V), logits (t_i, n),
-        tenant_logits (t_i, ways) | None, the end-of-chunk ``pred`` and the
-        cumulative ``step``; a (C_in,) sample gets the last row only."""
+        tenant_logits (t_i, max_ways) | None, the end-of-chunk ``pred`` and
+        the cumulative ``step``; a (C_in,) sample gets the last row only.
+        A pushed session's parked tenant bank is made resident first."""
         if len(chunks) > self.n_slots:
             raise ValueError(
                 f"{len(chunks)} sessions pushed but only {self.n_slots} "
@@ -367,12 +464,17 @@ class StreamSessionService(SlotGridService):
                 raise ValueError(f"session {sid}: empty chunk")
             arrs[sid] = a
         self._touch_and_bind(chunks)
+        if self.paged_bank:
+            for sid in arrs:
+                t = self.sessions[sid].tenant
+                if t != NO_TENANT:
+                    self._ensure_bank_resident(t)
 
         slot_of = {sid: self.sched.slot_of[sid] for sid in arrs}
         lens = {sid: a.shape[0] for sid, a in arrs.items()}
         max_len = max(lens.values())
         pieces = {sid: [] for sid in arrs}
-        tenant_ids = torch.tensor(self.tenant_of_slot).to(self.device)
+        w, b = self._slot_fc()
         off = 0
         while off < max_len:
             t_pad = self._tick_len(max_len - off)
@@ -394,7 +496,9 @@ class StreamSessionService(SlotGridService):
                 self.states, emb, logits = grid_scan(
                     self._params, self._bn, self.cfg, self.states, xt, valid,
                     quantize=self.quantize)
-            tlogits = self._banked(emb, tenant_ids)
+            # the paged table is block-granular (>= max_ways): keep the
+            # result surface layout-independent
+            tlogits = self._banked(emb, w, b)[..., :self.max_ways]
             emb, logits, tlogits = (emb.cpu().numpy(), logits.cpu().numpy(),
                                     tlogits.cpu().numpy())
             self.dispatches += 1
@@ -431,7 +535,12 @@ class StreamSessionService(SlotGridService):
         shots: (k, T, C_in) raw clips, or (k, V) embeddings when
         ``embedded``.  ``way=None, label=None`` appends a new way; ``way=j``
         refines way j; ``label=x`` appends on the first enroll of x and
-        refines on later ones.  The next push classifies against it."""
+        refines on later ones.  The next push classifies against it.
+
+        Paged: the tenant's rows grow a block at a time from the shared
+        pool (``PoolExhausted`` is back-pressure), and a parked tenant is
+        made resident for the update and parked again if none of its
+        sessions is bound."""
         tenant = self.sessions[sid].tenant
         if tenant == NO_TENANT:
             raise ValueError("session has no tenant; open with tenant=None "
@@ -446,8 +555,12 @@ class StreamSessionService(SlotGridService):
             if self._tenant_ways[tenant] >= self.max_ways:
                 raise RuntimeError(
                     f"tenant {tenant} at max_ways={self.max_ways}")
-            self.bank = bank_add_class(self.bank, tenant, emb)
-            way = int(self._tenant_ways[tenant])
+            if self.paged_bank:
+                self._ensure_bank_resident(tenant)
+                way = self.bankpool.add_class(tenant, emb)
+            else:
+                self.bank = bank_add_class(self.bank, tenant, emb)
+                way = int(self._tenant_ways[tenant])
             self._tenant_ways[tenant] += 1
             if label is not None:
                 self._tenant_labels[tenant][label] = way
@@ -457,9 +570,106 @@ class StreamSessionService(SlotGridService):
                     f"way {way} not enrolled for tenant {tenant} "
                     f"({self._tenant_ways[tenant]} ways); omit way= to "
                     "enroll")
-            self.bank = bank_update_class(self.bank, tenant, way, emb)
+            if self.paged_bank:
+                self._ensure_bank_resident(tenant)
+                self.bankpool.update_class(tenant, way, emb)
+            else:
+                self.bank = bank_update_class(self.bank, tenant, way, emb)
+        if self.rehearsal is not None:
+            self.rehearsal.add(tenant, way, emb.cpu().numpy())
+        self._maybe_park_tenant(tenant)
         self.enrolls += 1
         return way
+
+    def rehearse_tenant(self, tenant: int) -> int:
+        """Rebuild every enrolled way of ``tenant`` from the rehearsal
+        buffer (dequantized u4 log2 embeddings re-summed), REPLACING the
+        exact running sums.  Returns the number of ways rebuilt."""
+        if self.rehearsal is None:
+            raise RuntimeError(
+                "service built with rehearsal_cap=0; no buffer to replay")
+        n = int(self._tenant_ways[tenant])
+        rows = [self.rehearsal.rebuild(tenant, way, self.cfg.embed_dim)
+                for way in range(n)]
+        if self.paged_bank:
+            self._ensure_bank_resident(tenant)
+            for way, (s, k) in enumerate(rows):
+                self.bankpool.set_way(tenant, way, s, k)
+            self._maybe_park_tenant(tenant)
+        elif n:
+            s_sums, counts = self.bank.s_sums.clone(), self.bank.counts.clone()
+            s_sums[tenant, :n] = torch.from_numpy(
+                np.stack([s for s, _ in rows])).to(self.device)
+            counts[tenant, :n] = torch.tensor(
+                [float(k) for _, k in rows], device=self.device)
+            self.bank = self.bank._replace(s_sums=s_sums, counts=counts)
+        return n
+
+    # -- tenant-state handoff ------------------------------------------------
+    def live_tenants(self) -> list[int]:
+        return [t for t in range(len(self._tenant_ways))
+                if t not in self._free_tenants]
+
+    def export_tenant(self, tenant: int) -> dict:
+        """Layout-free host snapshot of one tenant's learned state: the
+        running sums truncated to the enrolled ways (numpy), the label ->
+        way registry and the rehearsal reservoirs.  Non-destructive; either
+        bank layout, in either package, adopts it."""
+        if not 0 <= tenant < len(self._tenant_ways) \
+                or tenant in self._free_tenants:
+            raise KeyError(f"tenant {tenant} not in use")
+        n = int(self._tenant_ways[tenant])
+        dim = self.cfg.embed_dim
+        if self.paged_bank:
+            row = self.bankpool.pack(tenant)
+        else:
+            row = bank_pack_tenant(self.bank, tenant)
+        s = np.asarray(row["s_sums"], np.float32).reshape(-1, dim)[:n]
+        c = np.asarray(row["counts"], np.float32).reshape(-1)[:n]
+        blob = {"s_sums": s, "counts": c, "n_ways": n,
+                "labels": dict(self._tenant_labels.get(tenant, {}))}
+        if self.rehearsal is not None:
+            blob["rehearsal"] = self.rehearsal.export_tenant(tenant)
+        return blob
+
+    def adopt_tenant(self, tenant: int | None, blob: dict) -> int:
+        """Install an ``export_tenant`` blob under ``tenant`` (a free row)
+        or under a fresh row when ``tenant is None``; returns the id used.
+        A paged bank adopts the tenant parked (zero device rows until its
+        first use)."""
+        if tenant is None:
+            if not self._free_tenants:
+                raise RuntimeError("tenant bank full")
+            tenant = self._free_tenants[0]
+        if not 0 <= tenant < len(self._tenant_ways):
+            raise ValueError(f"tenant {tenant} out of range "
+                             f"[0, {len(self._tenant_ways)})")
+        if tenant not in self._free_tenants:
+            raise ValueError(f"tenant {tenant} already in use; refuse to "
+                             "overwrite its prototype rows")
+        n = int(blob["n_ways"])
+        if n > self.max_ways:
+            raise ValueError(f"blob carries {n} ways but this service caps "
+                             f"at max_ways={self.max_ways}")
+        dim = self.cfg.embed_dim
+        s = np.asarray(blob["s_sums"], np.float32).reshape(-1, dim)[:n]
+        c = np.asarray(blob["counts"], np.float32).reshape(-1)[:n]
+        self._free_tenants.remove(tenant)
+        if self.paged_bank:
+            self.bankpool.adopt(tenant, {"s_sums": s, "counts": c,
+                                         "n_ways": n})
+        else:
+            sp = np.zeros((self.max_ways, dim), np.float32)
+            cp = np.zeros((self.max_ways,), np.float32)
+            sp[:n], cp[:n] = s, c
+            self.bank = bank_unpack_tenant(self.bank, tenant, {
+                "s_sums": sp, "counts": cp, "n_ways": n})
+        self._tenant_ways[tenant] = n
+        if blob.get("labels"):
+            self._tenant_labels[tenant] = dict(blob["labels"])
+        if self.rehearsal is not None and blob.get("rehearsal"):
+            self.rehearsal.adopt_tenant(tenant, blob["rehearsal"])
+        return tenant
 
     # -- introspection ------------------------------------------------------
     def poll(self, sid: int) -> dict:
@@ -478,5 +688,18 @@ class StreamSessionService(SlotGridService):
         return slot_park_bytes(self.cfg, quantize=self.quantize)
 
     def _extra_stats(self) -> dict:
-        return {"tenant_row_bytes": bank_row_bytes(self.bank),
-                "fused": self.fused, "enrolls": self.enrolls}
+        # what one tenant's prototype rows cost: a row of the dense bank, or
+        # one block (the allocation granule) of the paged pool, beside the
+        # pool's occupancy
+        if self.paged_bank:
+            bp = self.bankpool
+            extra = {"tenant_row_bytes":
+                     bp.block_ways * (self.cfg.embed_dim + 1) * 4}
+            extra.update({f"bank_pool_{k}": v for k, v in bp.stats().items()})
+        else:
+            extra = {"tenant_row_bytes": bank_row_bytes(self.bank)}
+        extra.update(fused=self.fused, paged_bank=self.paged_bank,
+                     enrolls=self.enrolls)
+        if self.rehearsal is not None:
+            extra["rehearsal_bytes"] = self.rehearsal.nbytes()
+        return extra

@@ -4,7 +4,8 @@ dense layout.
 The port of ``repro/sessions/tenancy.py``: ``TenantBank`` stacks up to
 ``max_tenants`` PrototypeStores into one (T, max_ways, V) table so every
 slot classifies against its own tenant's keyword set in one batched
-contraction (core/protonet.pn_logits_banked).  Updates return a new bank,
+contraction (core/protonet.pn_logits_banked; the service gathers each
+slot's rows once a push and contracts with pn_logits_rows).  Updates return a new bank,
 as in the reference; the index arithmetic stays on the device.
 """
 

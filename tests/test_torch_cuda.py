@@ -1,9 +1,12 @@
 """The port's CUDA kernels against their plain PyTorch versions on an
-NVIDIA GPU.  ``tcn_block`` (strip and chunk entries) and
-``proto_extract`` share their plain versions' summation order and are
-compared bit for bit; ``log2_matmul``
-and ``dilated_conv`` are compared at the JAX tests' tolerances with the
-plain products in full fp32 (TF32 switched off around them).
+NVIDIA GPU.  ``tcn_block`` (strip and chunk entries, at the CPU tests'
+widths and at ``chameleon-tcn-kws``'s) and ``proto_extract`` share their
+plain versions' summation order and are compared bit for bit;
+``log2_matmul`` and ``dilated_conv`` are compared at the JAX tests'
+tolerances with the plain products in full fp32 (TF32 switched off around
+them).  The continual-learning service (paged and dense tenant banks,
+park/unpark, rehearsal) is held bit for bit between its two bank layouts
+at the CL demo's widths.
 Marked ``cuda``; every test skips when no card is present.  This file
 imports no JAX, so it runs on a machine that has only PyTorch:
 
@@ -30,6 +33,7 @@ from repro_torch.kernels.ref import (  # noqa: E402
 )
 from repro_torch.kernels.tcn_block import tcn_block, tcn_chunk  # noqa: E402
 from repro_torch.models.tcn import _bake_weight  # noqa: E402
+from repro_torch.sessions import StreamSessionService  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -69,14 +73,16 @@ def _block(seed, S, T, Cin, C, k, d, *, packed, with_down, dev):
 
 
 @pytest.mark.parametrize("quantize", [False, True])
-@pytest.mark.parametrize("Cin,with_down,d", [(1, True, 1), (32, False, 8),
-                                              (32, False, 64)])
-def test_tcn_block_kernel_matches_plain(dev, quantize, Cin, with_down, d):
-    strip1, hist2, p = _block(d, 4, 16, Cin, 32, 7, d, packed=quantize,
+@pytest.mark.parametrize("Cin,C,k,with_down,d", [
+    (1, 32, 7, True, 1), (32, 32, 7, False, 8), (32, 32, 7, False, 64),
+    (28, 24, 3, True, 1), (24, 24, 3, False, 8)])  # chameleon-tcn, -kws
+def test_tcn_block_kernel_matches_plain(dev, quantize, Cin, C, k, with_down,
+                                        d):
+    strip1, hist2, p = _block(d, 4, 16, Cin, C, k, d, packed=quantize,
                               with_down=with_down, dev=dev)
     before = tcn_block.launches
-    h, mid = tcn_block(strip1, hist2, p, dilation=d, k=7, quantize=quantize)
-    hr, mr = tcn_block_fused(strip1, hist2, p, dilation=d, k=7,
+    h, mid = tcn_block(strip1, hist2, p, dilation=d, k=k, quantize=quantize)
+    hr, mr = tcn_block_fused(strip1, hist2, p, dilation=d, k=k,
                              quantize=quantize)
     torch.cuda.synchronize()
     assert tcn_block.launches == before + 1
@@ -97,19 +103,20 @@ def test_tcn_block_rejects_bad_operands(dev):
 
 
 # tcn_chunk at the CPU tests' sizes: 4 blocks of C=8, k=7, d = 1..8
-# (rings of 6..48 rows), Cin=2 into block 0
+# (rings of 6..48 rows), Cin=2 into block 0; and at chameleon-tcn-kws's:
+# 4 blocks of 24 channels, k=3, Cin=28 (rings of 2..16 rows)
 CHUNK_WIDTHS, CHUNK_K = ((2, 8), (8, 8), (8, 8), (8, 8)), 7
+KWS_WIDTHS, KWS_K = ((28, 24), (24, 24), (24, 24), (24, 24)), 3
 
 
-def _chunk_case(seed, S, T, *, packed, dev):
+def _chunk_case(seed, S, T, *, packed, dev, widths=CHUNK_WIDTHS, k=CHUNK_K):
     """Block params, a grid whose step counters sit just before, at and
     after every ring's wrap, a chunk and ragged lengths (0 and T among
     them)."""
     rng = np.random.default_rng(seed)
     f = lambda *s: torch.tensor(rng.normal(size=s).astype(np.float32)).to(dev)
-    k = CHUNK_K
     blocks, rings, times = {}, {}, [0]
-    for i, (cin, C) in enumerate(CHUNK_WIDTHS):
+    for i, (cin, C) in enumerate(widths):
         n = (k - 1) * 2 ** i
         blocks[f"b{i}"] = _block(seed + i, 1, 1, cin, C, k, 2 ** i,
                                  packed=packed, with_down=cin != C, dev=dev)[2]
@@ -120,7 +127,7 @@ def _chunk_case(seed, S, T, *, packed, dev):
     lengths = torch.tensor(rng.integers(0, T + 1, size=S), dtype=torch.int32,
                            device=dev)
     lengths[0], lengths[1] = 0, T
-    return blocks, {"t": t, "blocks": rings}, f(S, T, CHUNK_WIDTHS[0][0]), lengths
+    return blocks, {"t": t, "blocks": rings}, f(S, T, widths[0][0]), lengths
 
 
 def _grid_equal(a, b) -> bool:
@@ -137,9 +144,12 @@ def _grid_clone(g):
 @pytest.mark.parametrize("packed,quantize", [(False, False), (False, True),
                                              (True, False), (True, True)])
 @pytest.mark.parametrize("T", [1, 2, 7, 16, 40])
-def test_tcn_chunk_kernel_matches_plain(dev, T, packed, quantize):
-    blocks, grid, x, lengths = _chunk_case(T, 13, T, packed=packed, dev=dev)
-    kw = dict(k=CHUNK_K, quantize=quantize)
+@pytest.mark.parametrize("widths,k", [(CHUNK_WIDTHS, CHUNK_K),
+                                      (KWS_WIDTHS, KWS_K)], ids=["small", "kws"])
+def test_tcn_chunk_kernel_matches_plain(dev, widths, k, T, packed, quantize):
+    blocks, grid, x, lengths = _chunk_case(T, 13, T, packed=packed, dev=dev,
+                                           widths=widths, k=k)
+    kw = dict(k=k, quantize=quantize)
     want, hr = tcn_chunk_plain(blocks, grid, x, lengths, **kw)
     before = _grid_clone(grid)
     launches = tcn_chunk.launches
@@ -354,3 +364,74 @@ def test_service_long_tick_equals_short_ticks(dev, name, limit):
         for key in ("emb", "logits"):
             assert np.array_equal(a[key], b[key])
     assert _grid_equal(lg, sg)
+
+
+# ---------------------------------------------------------------------------
+# continual learning: paged == dense tenant banks on the card
+# ---------------------------------------------------------------------------
+
+def _cl_services(dev, max_ways):
+    """A paged (16-way blocks) and a dense chameleon-tcn service with the
+    same random weights, 8 sessions over 4 tenants."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_tcn_bundle
+
+    cfg = get_config("chameleon-tcn")
+    bundle = build_tcn_bundle(cfg, dev)
+    params = bundle.init(torch.Generator().manual_seed(3))
+    return [StreamSessionService(bundle, params, n_slots=8, max_tenants=4,
+                                 max_ways=max_ways, paged_bank=paged,
+                                 bank_block_ways=16, rehearsal_cap=4)
+            for paged in (True, False)]
+
+
+def _cl_tick(svcs, sids, x):
+    outs = [svc.push_audio({sid: x[i] for i, sid in enumerate(s)})
+            for svc, s in zip(svcs, sids)]
+    torch.cuda.synchronize()
+    for sp, sd in zip(*sids):
+        for key in ("emb", "logits", "tenant_logits"):
+            a, b = outs[0][sp][key], outs[1][sd][key]
+            assert (a is None) == (b is None), key
+            if a is not None:
+                assert np.array_equal(a, b), key
+    return outs
+
+
+@pytest.mark.parametrize("max_ways", [8, 250, 256])
+def test_paged_bank_equals_dense_on_card(dev, max_ways):
+    """Tenant logits of the paged bank (tables 16, 256 and 256 wide) equal
+    the dense bank's (8, 250 and 256 wide) bit for bit; parking a tenant's
+    sessions takes its blocks out of the pool and resuming them continues
+    bit-identically; a rehearsal rebuild on the card keeps the equality."""
+    rng = np.random.default_rng(max_ways)
+    svcs = _cl_services(dev, max_ways)
+    sids = [[svc.open_session(tenant=i % 4) for i in range(8)] for svc in svcs]
+    n = [max_ways, max_ways // 2, 3, 0]
+    for t in range(4):
+        for j in range(n[t]):
+            e = rng.normal(size=(3, 64)).astype(np.float32)
+            for svc, s in zip(svcs, sids):
+                assert svc.enroll_shots(s[t], e, embedded=True) == j
+    e = rng.normal(size=(2, 64)).astype(np.float32)
+    for svc, s in zip(svcs, sids):
+        svc.enroll_shots(s[0], e, embedded=True, way=max_ways - 1)
+    x = lambda: rng.normal(size=(8, 16, 1)).astype(np.float32)
+    out = _cl_tick(svcs, sids, x())
+    tl = out[0][sids[0][1]]["tenant_logits"]
+    assert tl.shape == (16, max_ways) and np.isfinite(tl[:, :n[1]]).all()
+    assert np.isneginf(tl[:, n[1]:]).all()
+    paged = svcs[0]
+    live = paged.bankpool.pool.n_live
+    for i in (1, 5):  # every session of tenant 1
+        paged.park(sids[0][i])
+    assert not paged.bankpool.is_resident(1)
+    assert paged.bankpool.pool.n_live == live - -(-n[1] // 16)
+    _cl_tick(svcs, sids, x())
+    assert paged.bankpool.is_resident(1)
+    for svc in svcs:
+        assert svc.rehearse_tenant(0) == max_ways
+    _cl_tick(svcs, sids, x())
+    blobs = [svc.export_tenant(0) for svc in svcs]
+    for key in ("s_sums", "counts"):
+        assert np.array_equal(blobs[0][key], blobs[1][key])

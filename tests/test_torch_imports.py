@@ -35,15 +35,19 @@ def test_port_files_found():
     names = {p.name for p in PORT_FILES}
     assert {"chip_smoke.py", "tcn_block.py", "proto_extract.py",
             "service.py", "convert.py", "log2_matmul.py", "dilated_conv.py",
-            "ops.py"} <= names
+            "ops.py", "paging.py", "bankpool.py", "rehearsal.py"} <= names
 
 
 @pytest.mark.parametrize("module", ["repro_torch.kernels.dispatch",
                                     "repro_torch.kernels",
-                                    "repro_torch.configs"])
+                                    "repro_torch.configs",
+                                    "repro_torch.sessions.paging",
+                                    "repro_torch.sessions.bankpool",
+                                    "repro_torch.sessions.rehearsal"])
 def test_module_imports_first(module):
     """Each of these imports in a fresh interpreter before anything else of
-    the port (the configs import the models, which import dispatch)."""
+    the port (the configs import the models, which import dispatch; the
+    session modules import the scheduler, protonet and dispatch)."""
     import os
     import subprocess
     import sys
@@ -72,12 +76,13 @@ def test_default_device_entry_points_raise_without_a_card():
     )
     from repro_torch.models import build_tcn_bundle
     from repro_torch.models.tcn import make_fused_forward
-    from repro_torch.sessions import grid_init
+    from repro_torch.sessions import PagedBankPool, grid_init
 
     cfg = get_config("chameleon-tcn")
     for entry in (lambda: build_tcn_bundle(cfg),
                   lambda: make_fused_forward(cfg),
                   lambda: grid_init(cfg, 2),
+                  lambda: PagedBankPool(4, 2, 8, 2),
                   make_log2_matmul_op, make_dilated_conv_op,
                   make_proto_extract_op):
         with pytest.raises(RuntimeError, match="device='cpu'"):

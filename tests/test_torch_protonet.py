@@ -123,3 +123,42 @@ def test_tenant_bank_ops_match_reference():
     bt = tten.bank_unpack_tenant(bt, 1, row)
     np.testing.assert_array_equal(bt.s_sums[1].numpy(), row["s_sums"])
     assert tten.bank_row_bytes(bt) == jten.bank_row_bytes(bj)
+
+
+def test_l2_classify_matches_reference():
+    rng = np.random.default_rng(8)
+    x = rng.normal(size=(9, 16)).astype(np.float32)
+    protos = rng.normal(size=(6, 16)).astype(np.float32)
+    it, dt = tp.l2_classify(torch.tensor(x), torch.tensor(protos))
+    ij, dj = jp.l2_classify(jnp.asarray(x), jnp.asarray(protos))
+    np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+    _close(dt.numpy(), dj)
+    # the FC form (W = s/k, b = -|W|^2/2) picks the same class (Eq. 6)
+    w = torch.tensor(protos)
+    fc = tp.pn_logits(torch.tensor(x), w, -(w * w).sum(-1) / 2.0)
+    np.testing.assert_array_equal(fc.argmax(-1).numpy(), it.numpy())
+
+
+@pytest.mark.parametrize("V", [12, 13, 64])
+def test_banked_contraction_bits_independent_of_width_and_batch(V):
+    """pn_logits_rows' fixed-order contraction: a row's logits have the
+    same bits at any table width N, batch S or step count T, and equal the
+    reference's within fp32 tolerance."""
+    rng = np.random.default_rng(V)
+    x = torch.tensor(rng.normal(size=(6, 5, V)).astype(np.float32))
+    w = torch.tensor(rng.normal(size=(6, 256, V)).astype(np.float32))
+    b = torch.tensor(rng.normal(size=(6, 256)).astype(np.float32))
+    full = tp.pn_logits_rows(x, w, b)  # (S, T, N)
+    for N in (5, 8, 250, 256):
+        for S in (1, 4, 6):
+            for t in (0, 4):
+                got = tp.pn_logits_rows(x[:S, t].contiguous(),
+                                        w[:S, :N].contiguous(),
+                                        b[:S, :N].contiguous())
+                assert torch.equal(got, full[:S, t, :N])
+    want = jp.pn_logits_banked(jnp.asarray(x[:, 0].numpy()),
+                               jnp.asarray(w.numpy()), jnp.asarray(b.numpy()),
+                               jnp.arange(6))
+    _close(full[:, 0].numpy(), want)
+    torch.testing.assert_close(tp.sum_last(w), w.sum(-1), rtol=RTOL,
+                               atol=ATOL)
