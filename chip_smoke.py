@@ -34,9 +34,29 @@ non-zero):
            bit-exact tick; enrollment latency, the 250-way tick beside an
            8-way one (profiled), and the 250-way tick beside the same tick
            with each slot's FC rows gathered again every step;
+  plane    the fault-tolerant ServingPlane over two paged CL services
+           (cl_curve's served configuration, 64 slots, 128 sessions each)
+           at the full chameleon-tcn width: 6 tenants enroll 5 ways x 5 raw
+           784-sample shots, then 192 concurrent clients stream 784 samples
+           each in ragged chunks, retrying Rejected through RetryPolicy,
+           while worker 0 crashes, flakes and storms (FaultInjector), the
+           spill journal snapshots every op, worker 1 drains and returns
+           and work stealing moves idle tenant groups: no session lost, at
+           least one crash and one recovery, a rebuilt worker's baked
+           params equal and the dead service's tensors released, and every
+           session bit for bit equal to a synchronous control on one
+           service of the same geometry; op latency, MTTR, batch lanes,
+           journal cost per epoch, and the 64 x 16 tick through the plane
+           beside the bare service's;
+  spill    worker 0's sessions after the plane drive: spill_parking (with
+           the bound ones) into build/, restore_parking on a fresh service,
+           64 more samples to every restored session, bit for bit equal to
+           the control; the file's bytes and the spill and restore seconds;
   kws      chameleon-tcn-kws (4 blocks of 24, k=3, 28 MFCC channels): the
            kernels phase at its shapes, then the serve phase's checks (no
-           784-sample tick: 63-frame windows) and its tick;
+           784-sample tick: 63-frame windows) and its tick; then
+           TCNStreamServer, 64 streams x 252 frames in 63-frame pushes, bit
+           for bit equal to the bare service and to its push_chunk shim;
   ops      log2_matmul (both paths: tensor-core tiles, and the decode path
            for M <= 4) and dilated_conv (repro_torch.kernels.ops) against
            their plain versions at every listed shape (TF32 off), the
@@ -1224,6 +1244,480 @@ def same_blob(a: dict, b: dict, tag: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phases: plane, spill, kws server (the serving layer)
+# ---------------------------------------------------------------------------
+
+# the plane phase: benchmarks/cl_curve.py's served configuration on both
+# workers, at the serve phase's grid, 192 sessions over 6 tenants; at most
+# PLANE_LIVE sessions are open at a time (each worker admits 128), the
+# last PLANE_KEEP stay open for the spill phase
+PLANE_SESSIONS, PLANE_TENANTS, PLANE_LIVE, PLANE_KEEP = 192, 6, 128, 64
+PLANE_MAX_SESSIONS, PLANE_STEAL = 128, 16
+# worker 0's verb clock runs its tenants' first opens and 15 enrolls, then
+# the clients' opens (the storm), then mostly pushes (one verb a batch,
+# the flakes) and closes; a crash lands in each of the two stretches
+PLANE_FAULTS = "crash@40,storm@60x40,flake@120x30,crash@200"
+PLANE_DRAIN_AFTER = 48   # closed sessions before worker 1 drains
+SPILL_EXTRA = 64         # samples pushed to every restored session
+
+
+def plane_service(bundle, params, bn, **kw):
+    from repro_torch.sessions import StreamSessionService
+
+    return StreamSessionService(
+        bundle, params, bn, n_slots=N_SLOTS, max_tenants=N_TENANTS,
+        max_ways=CL_WAYS, t_chunk=T_CHUNK, fused=True, paged_bank=True,
+        bank_block_ways=CL_BLOCK_WAYS, bank_blocks=CL_BLOCKS,
+        rehearsal_cap=CL_CAP, max_sessions=PLANE_MAX_SESSIONS, **kw)
+
+
+def host_bytes(obj) -> int:
+    """Bytes of the numpy arrays in a nested blob (a journal entry)."""
+    import numpy as np
+
+    if isinstance(obj, dict):
+        return sum(host_bytes(v) for v in obj.values())
+    if isinstance(obj, (list, tuple)):
+        return sum(host_bytes(v) for v in obj)
+    return obj.nbytes if isinstance(obj, np.ndarray) else 0
+
+
+def plane_tenants() -> list:
+    """PLANE_TENANTS tenant ids, half hashing to each of two workers (the
+    plane routes a tenant to crc32(str(tenant)) % workers)."""
+    import zlib
+
+    by = {0: [], 1: []}
+    for t in range(N_TENANTS):
+        by[zlib.crc32(str(t).encode()) % 2].append(t)
+    half = PLANE_TENANTS // 2
+    if min(len(by[0]), len(by[1])) < half:
+        raise AssertionError(f"tenant ids split {by}, need {half} a side")
+    return sorted(by[0][:half] + by[1][:half])
+
+
+def concat_results(results: list) -> tuple:
+    import numpy as np
+
+    tl = [r["tenant_logits"] for r in results]
+    if any(t is None for t in tl):
+        if not all(t is None for t in tl):
+            raise AssertionError("tenant logits appeared mid-stream")
+        tl = None
+    else:
+        tl = np.concatenate(tl)
+    return (np.concatenate([r["emb"] for r in results]),
+            np.concatenate([r["logits"] for r in results]), tl,
+            [r["pred"] for r in results])
+
+
+def same_stream(a: tuple, b: tuple) -> bool:
+    import numpy as np
+
+    return all((x is None and y is None) or (
+        x is not None and y is not None and np.array_equal(x, y))
+        for x, y in zip(a[:3], b[:3])) and a[3] == b[3]
+
+
+def plane_tick(bundle, params, bn, audio) -> dict:
+    """The 64 x T_CHUNK tick through a one-worker plane (64 concurrent
+    clients, one batch, one tick; with and without the spill journal)
+    beside the same tick on the bare service, in turns, host clock around
+    calls that return host arrays."""
+    import asyncio
+
+    import numpy as np
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.serving import ServingPlane
+
+    x = audio[:, :T_CHUNK]
+    bare = plane_service(bundle, params, bn)
+    sids = [bare.open_session() for _ in range(N_SLOTS)]
+    work = {sid: x[i] for i, sid in enumerate(sids)}
+
+    async def through(every):
+        plane = ServingPlane(plane_service(bundle, params, bn),
+                             metrics=MetricsRegistry(),
+                             checkpoint_every=every)
+        async with plane:
+            ps = [await plane.open_session() for _ in range(N_SLOTS)]
+
+            async def tick():
+                await asyncio.gather(*(plane.push(p, x[i])
+                                       for i, p in enumerate(ps)))
+
+            for _ in range(3):
+                await tick()
+            ms = []
+            for _ in range(20):
+                t0 = time.perf_counter()
+                await tick()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            lanes = plane.metrics()["plane_batch_lanes"][0]
+            if lanes["max"] != N_SLOTS:
+                raise AssertionError(f"plane tick: batches of {lanes['max']}"
+                                     f" lanes, expected {N_SLOTS}")
+            return float(np.median(ms))
+
+    def bare_ms():
+        for _ in range(3):
+            bare.push(work)
+        ms = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            bare.push(work)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(ms))
+
+    out = {}
+    for name in ("bare", "plane", "plane_journal", "plane", "bare"):
+        if name == "bare":
+            ms = bare_ms()
+        else:
+            ms = asyncio.run(through(1 if name == "plane_journal" else 0))
+        out.setdefault(name, []).append(ms)
+    log(f"plane tick ({N_SLOTS}x{T_CHUNK} samples, end to end, median of 20,"
+        f" turns bare/plane/plane+journal/plane/bare): bare_ms="
+        f"{out['bare']} plane_ms={out['plane']} "
+        f"plane_journal_ms={out['plane_journal']}")
+    return {k: float(np.median(v)) for k, v in out.items()}
+
+
+def phase_plane(cfg, dev, seed: int = 11, stream_len: int = STREAM_LEN,
+                shot_len: int = STREAM_LEN):
+    """The fault-tolerant ServingPlane over two paged CL services at full
+    width: tenants enroll N_WAYS x K_SHOTS raw clips, then PLANE_SESSIONS
+    concurrent clients stream ragged chunks through crash, flake, storm,
+    a drain of worker 1 and work stealing, retrying Rejected through
+    RetryPolicy; every session's outputs equal a synchronous control's bit
+    for bit.  Returns the launches and what the spill phase needs."""
+    import asyncio
+    import gc
+    import weakref
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.tcn_block import tcn_block, tcn_chunk
+    from repro_torch.obs import MetricsRegistry, latency_summary
+    from repro_torch.serving import (FaultInjector, FaultPlan, Rejected,
+                                     RetryPolicy, ServingPlane)
+    from repro_torch.sessions.state import parked_bytes
+
+    rng = np.random.default_rng(seed)
+    bundle, params, bn = make_model(cfg, dev, seed)
+    c_in = cfg.tcn_in_channels
+    tenants = plane_tenants()
+    tenant_of = [tenants[i % len(tenants)] for i in range(PLANE_SESSIONS)]
+    audio = rng.normal(size=(PLANE_SESSIONS, stream_len + SPILL_EXTRA, c_in)
+                       ).astype(np.float32)
+    shots = {t: rng.normal(size=(N_WAYS, K_SHOTS, shot_len, c_in)
+                           ).astype(np.float32) for t in tenants}
+    schedule = make_schedule(rng, PLANE_SESSIONS, stream_len)
+    chunks = {i: [rnd[i] for rnd in schedule if i in rnd]
+              for i in range(PLANE_SESSIONS)}
+    built = []  # every service the workers ran, to check the dead are freed
+
+    def factory():
+        svc = plane_service(bundle, params, bn)
+        built.append(weakref.ref(svc))
+        return svc
+
+    inj = FaultInjector(factory(), FaultPlan.parse(PLANE_FAULTS),
+                        factory=factory)
+    reg = MetricsRegistry()
+    plane = ServingPlane([inj, factory()], metrics=reg, checkpoint_every=1,
+                         steal_threshold=PLANE_STEAL)
+    journal = {"s": 0.0, "bytes": 0, "epochs": 0}
+    flush = plane._flush_journal
+
+    def timed_flush(w):
+        dirty, tids = set(w.dirty), set(w.dirty_tenants)
+        t0 = time.perf_counter()
+        flush(w)
+        journal["s"] += time.perf_counter() - t0
+        journal["epochs"] += 1
+        journal["bytes"] += sum(parked_bytes(plane._journal[p]["blob"])
+                                for p in dirty if p in plane._journal)
+        journal["bytes"] += sum(host_bytes(plane._tenant_journal[k])
+                                for k in plane._tenant_journal
+                                if k[0] == w.idx and k[1] in tids)
+
+    plane._flush_journal = timed_flush
+    latencies, outs = [], {i: [] for i in range(PLANE_SESSIONS)}
+    psids, done = {}, {"closed": 0}
+    drain_after = min(PLANE_DRAIN_AFTER, PLANE_SESSIONS - PLANE_KEEP)
+
+    async def call(op, attempt_seed):
+        policy = RetryPolicy(seed=attempt_seed)
+        t0 = time.perf_counter()
+        for attempt in range(10_000):
+            try:
+                res = await op()
+                latencies.append(time.perf_counter() - t0)
+                return res
+            except Rejected as e:
+                if not e.retryable:
+                    raise
+                await policy.sleep(attempt, e.retry_after)
+        raise AssertionError("an op ran out of retries")
+
+    async def main():
+        drained = asyncio.Event()
+        live = asyncio.Semaphore(PLANE_LIVE)
+        first = {t: tenant_of.index(t) for t in tenants}
+        async with plane:
+            # each tenant's first session enrolls its ways before any push
+            for t in tenants:
+                await live.acquire()
+                i = first[t]
+                psids[i] = await call(lambda: plane.open_session(tenant=t), i)
+            for t in tenants:
+                for way in range(N_WAYS):
+                    if await call(lambda: plane.enroll(
+                            psids[first[t]], shots[t][way]), t) != way:
+                        raise AssertionError("plane: enrollment order")
+
+            async def client(i):
+                if i not in psids:
+                    await live.acquire()
+                    psids[i] = await call(
+                        lambda: plane.open_session(tenant=tenant_of[i]), i)
+                for a, b in chunks[i]:
+                    outs[i].append(await call(
+                        lambda: plane.push(psids[i], audio[i, a:b]), i))
+                if i < PLANE_SESSIONS - PLANE_KEEP:
+                    await call(lambda: plane.close(psids[i]), i)
+                    done["closed"] += 1
+                    if done["closed"] == drain_after:
+                        drained.set()
+                    live.release()
+
+            async def drainer():
+                await drained.wait()
+                while True:  # a crashed peer cannot take the handoff yet
+                    try:
+                        s = await plane.drain(1)
+                        break
+                    except RuntimeError:
+                        await asyncio.sleep(0.005)
+                plane.undrain(1)
+                return s
+
+            results = await asyncio.gather(
+                drainer(), *(client(i) for i in range(PLANE_SESSIONS)))
+            return results[0]
+
+    tcn_block.launches = tcn_chunk.launches = 0
+    t0 = time.perf_counter()
+    with counting(ref, PLAIN_CHUNK) as plain:
+        summary = asyncio.run(main())
+    wall = time.perf_counter() - t0
+    chunk, strip = tcn_chunk.launches, tcn_block.launches
+    st, m = plane.stats(), plane.metrics()
+    counter = lambda name: sum(e["value"] for e in m.get(name, []))
+    fired = [k for _, k in inj.faults]
+    if st["lost_sessions"] != 0:
+        raise AssertionError(f"plane: {st['lost_sessions']} sessions lost")
+    if counter("plane_crashes_total") < 1 or \
+            counter("plane_recoveries_total") < 1:
+        raise AssertionError(f"plane: faults fired {fired}, but crashes "
+                             f"{counter('plane_crashes_total')} recoveries "
+                             f"{counter('plane_recoveries_total')}")
+    if summary["moved_sessions"] < 1:
+        raise AssertionError(f"plane: the drain moved nothing {summary}")
+    if strip != len(tenants) * N_WAYS * len(cfg.tcn_channels):
+        raise AssertionError(f"plane: {strip} strip launches for "
+                             f"{len(tenants) * N_WAYS} enrollments")
+    if chunk < 1 or any(plain.calls.values()):
+        raise AssertionError(f"plane: {chunk} tcn_chunk launches, plain "
+                             f"chunk calls {plain.calls}")
+    gc.collect()
+    dead = [r for r in built if r() is not None and r() is not inj.service
+            and r() is not plane.workers[1].service]
+    if dead:
+        raise AssertionError(f"plane: {len(dead)} crashed services still "
+                             "hold their tensors")
+    # the synchronous control: one service of the same geometry replays
+    # each session's ops in its own order, in waves of N_SLOTS sessions
+    ctl = plane_service(bundle, params, bn)
+    csid = {}
+    for t in tenants:
+        i = tenant_of.index(t)
+        csid[i] = ctl.open_session(tenant=t)
+        for way in range(N_WAYS):
+            ctl.enroll_shots(csid[i], shots[t][way])
+    for w0 in range(0, PLANE_SESSIONS, N_SLOTS):
+        wave = range(w0, min(w0 + N_SLOTS, PLANE_SESSIONS))
+        for i in wave:
+            if i not in csid:
+                csid[i] = ctl.open_session(tenant=tenant_of[i])
+        want = {i: [] for i in wave}
+        for r in range(max(len(chunks[i]) for i in wave)):
+            batch = {csid[i]: audio[i, slice(*chunks[i][r])]
+                     for i in wave if r < len(chunks[i])}
+            res = ctl.push_audio(batch)
+            for i in wave:
+                if r < len(chunks[i]):
+                    want[i].append(res[csid[i]])
+        for i in wave:
+            if not same_stream(concat_results(outs[i]),
+                               concat_results(want[i])):
+                raise AssertionError(f"plane: session {i} (tenant "
+                                     f"{tenant_of[i]}) differs from the "
+                                     "synchronous control")
+            if i < PLANE_SESSIONS - PLANE_KEEP:
+                ctl.close(csid[i])
+    if not all(torch.equal(a, b) for a, b in zip(
+            leaves(inj.service._fused_params), leaves(ctl._fused_params))):
+        raise AssertionError("plane: a rebuilt worker baked other params")
+    ops = len(latencies)
+    lat = np.asarray(latencies) * 1e3
+    mttr = latency_summary(m.get("plane_mttr_us", []))
+    lanes = m["plane_batch_lanes"][0]
+    rejected = {e["labels"]["reason"]: e["value"]
+                for e in m["plane_rejected_total"] if e["value"]}
+    evictions = sum(w.service.evictions for w in plane.workers)
+    log(f"plane {cfg.name}: {PLANE_SESSIONS} sessions over tenants "
+        f"{tenants} ({N_WAYS} ways x {K_SHOTS} raw {shot_len}-sample shots "
+        f"each), 2 workers x {N_SLOTS} slots, {ops} ops completed in "
+        f"{wall:.2f} s ({inj.ops} verbs on worker 0); op latency "
+        f"p50_ms={np.percentile(lat, 50):.4f} "
+        f"p99_ms={np.percentile(lat, 99):.4f}; faults fired "
+        f"{ {k: fired.count(k) for k in sorted(set(fired))} }, crashes "
+        f"{counter('plane_crashes_total')} recoveries "
+        f"{counter('plane_recoveries_total')} lost 0; mttr p50_us="
+        f"{mttr['p50_us']:.1f} p99_us={mttr['p99_us']:.1f}; batches "
+        f"{counter('plane_batches_total')} mean_lanes="
+        f"{lanes['sum'] / lanes['count']:.2f}; handoffs "
+        f"{counter('plane_handoffs_total')} (drain {summary}), steals "
+        f"{counter('plane_steals_total')}, evictions {evictions}; rejected "
+        f"{rejected}")
+    log(f"plane journal: {journal['epochs']} epochs, "
+        f"s_per_epoch={journal['s'] / journal['epochs']:.6f} "
+        f"bytes_per_epoch={journal['bytes'] / journal['epochs']:.0f} "
+        f"(total {journal['s']:.2f} s, {journal['bytes']} bytes)")
+    log(f"plane launches: tcn_chunk={chunk} strip={strip} (the enrollments),"
+        " plain chunk calls 0; every one of the "
+        f"{PLANE_SESSIONS} sessions bit-identical to the synchronous control")
+    tick = plane_tick(bundle, params, bn, audio)
+    keep = {i: csid[i] for i in range(PLANE_SESSIONS - PLANE_KEEP,
+                                      PLANE_SESSIONS)}
+    return {"launches": chunk + strip, "tick": tick, "worker0": inj.service,
+            "psid_of": dict(plane.workers[0].psid_of),
+            "session_of": {p: i for i, p in psids.items()},
+            "control": ctl, "control_sids": keep, "audio": audio,
+            "stream_len": stream_len, "make": lambda: plane_service(
+                bundle, params, bn)}
+
+
+def leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from leaves(v)
+    else:
+        yield tree
+
+
+def phase_spill(plane: dict):
+    """Worker 0's sessions after the plane drive: spill_parking with
+    include_bound into build/, restore_parking on a fresh service, and
+    SPILL_EXTRA more samples to every restored session, bit for bit equal
+    to the control continuing without a spill."""
+    import numpy as np
+
+    src = plane["worker0"]
+    path = ROOT / "build" / "plane_spill.npz"
+    t0 = time.perf_counter()
+    src.spill_parking(str(path), include_bound=True)
+    spill_s = time.perf_counter() - t0
+    fresh = plane["make"]()
+    t0 = time.perf_counter()
+    restored = fresh.restore_parking(str(path))
+    restore_s = time.perf_counter() - t0
+    if not restored:
+        raise AssertionError("spill: worker 0 held no session to spill")
+    n = plane["stream_len"]
+    audio, ctl = plane["audio"], plane["control"]
+    index = {sid: plane["session_of"][plane["psid_of"][sid]]
+             for sid in restored}
+    for a in range(0, len(restored), N_SLOTS):
+        group = restored[a:a + N_SLOTS]
+        got = fresh.push_audio({sid: audio[index[sid], n:]
+                                for sid in group})
+        want = ctl.push_audio({plane["control_sids"][index[sid]]:
+                               audio[index[sid], n:] for sid in group})
+        for sid in group:
+            if not same_stream(concat_results([got[sid]]), concat_results(
+                    [want[plane["control_sids"][index[sid]]]])):
+                raise AssertionError(f"spill: restored session {sid} "
+                                     "differs from the control")
+    log(f"spill: {len(restored)} sessions of worker 0 (tenants "
+        f"{sorted({fresh.sessions[s].tenant for s in restored})}) spilled to"
+        f" {path.name}: bytes={path.stat().st_size} spill_s={spill_s:.4f} "
+        f"restore_s={restore_s:.4f}; {SPILL_EXTRA} more samples each, bit "
+        f"for bit equal to the control")
+    return {"bytes": path.stat().st_size, "spill_s": spill_s,
+            "restore_s": restore_s, "sessions": len(restored)}
+
+
+def phase_kws_server(cfg, dev, seed: int = 12, n_streams: int = N_SLOTS,
+                     windows: int = 4):
+    """TCNStreamServer on chameleon-tcn-kws: n_streams streams of
+    windows x KWS_WINDOW frames in KWS_WINDOW-frame pushes, bit for bit
+    equal to the bare service and to the push_chunk shim."""
+    import warnings
+
+    import numpy as np
+    from repro_torch.kernels.tcn_block import tcn_block, tcn_chunk
+    from repro_torch.serving import TCNStreamServer
+    from repro_torch.sessions import StreamSessionService
+
+    rng = np.random.default_rng(seed)
+    bundle, params, bn = make_model(cfg, dev, seed)
+    x = rng.normal(size=(n_streams, windows * KWS_WINDOW,
+                         cfg.tcn_in_channels)).astype(np.float32)
+    srv = TCNStreamServer(bundle, params, bn, n_streams=n_streams)
+    tcn_block.launches = tcn_chunk.launches = 0
+    got = []
+    for a in range(0, x.shape[1], KWS_WINDOW):
+        res = srv.push({sid: x[i, a:a + KWS_WINDOW]
+                        for i, sid in enumerate(srv.sids)})
+        got.append([res[sid] for sid in srv.sids])
+    chunk, strip = tcn_chunk.launches, tcn_block.launches
+    if chunk != srv.stats()["dispatches"] or strip:
+        raise AssertionError(f"kws server: {chunk} tcn_chunk and {strip} "
+                             f"strip launches in {srv.stats()['dispatches']}"
+                             " ticks")
+    bare = StreamSessionService(bundle, params, bn, n_slots=n_streams,
+                                max_tenants=1, max_ways=1)
+    bsids = [bare.open_session() for _ in range(n_streams)]
+    shim = TCNStreamServer(bundle, params, bn, n_streams=n_streams)
+    for w, a in enumerate(range(0, x.shape[1], KWS_WINDOW)):
+        want = bare.push({s: x[i, a:a + KWS_WINDOW]
+                          for i, s in enumerate(bsids)})
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            embs, logits = shim.push_chunk(x[:, a:a + KWS_WINDOW])
+        for i, s in enumerate(bsids):
+            g = got[w][i]
+            if not same_stream(concat_results([g]),
+                               concat_results([want[s]])):
+                raise AssertionError(f"kws server: stream {i} differs from "
+                                     "the bare service")
+            if not (np.array_equal(embs[i], g["emb"])
+                    and np.array_equal(logits[i], g["logits"])):
+                raise AssertionError(f"kws server: stream {i} differs from "
+                                     "the push_chunk shim")
+            if not np.isfinite(g["emb"]).all():
+                raise AssertionError("kws server: non-finite embedding")
+    log(f"kws server {cfg.name}: {n_streams} streams x {x.shape[1]} frames "
+        f"in {KWS_WINDOW}-frame pushes, {chunk} ticks (one tcn_chunk launch "
+        "each), bit for bit equal to the bare service and to push_chunk")
+    return {"launches": chunk + strip}
+
+
+# ---------------------------------------------------------------------------
 # phase: ops (log2_matmul and dilated_conv, repro_torch.kernels.ops)
 # ---------------------------------------------------------------------------
 
@@ -1889,11 +2383,14 @@ def main() -> int:
     serve = phase("serve", phase_serve, cfg, dev)
     fsl = phase("fsl", phase_fsl, cfg, dev)
     cl = phase("cl", phase_cl, cfg, dev)
+    plane = phase("plane", phase_plane, cfg, dev)
+    phase("spill", phase_spill, plane)
     kws_errs = phase("kws kernels", phase_kernels, kws_cfg, dev,
                      embed_t=KWS_WINDOW, ts=(1, 2, 4, 8, T_CHUNK, KWS_WINDOW))
     kws = phase("kws serve", phase_serve, kws_cfg, dev,
                 stream_len=4 * KWS_WINDOW, shot_len=KWS_WINDOW,
                 long_tick=False)
+    kws_server = phase("kws server", phase_kws_server, kws_cfg, dev)
     op_errs = phase("ops", phase_ops, dev, audio_cfg, cfg)
     mm_time, conv_time = phase("ops timings", phase_ops_timings, dev,
                                audio_cfg)
@@ -1913,7 +2410,8 @@ def main() -> int:
          "source": "src/repro_torch/csrc/tcn_block.cu",
          "replaces": "src/repro/kernels/tcn_block.py:166",
          "launches": serve["launches"] + sum(c[1] for c in fsl.values())
-         + cl["launches"] + kws["launches"] + audio["launches"],
+         + cl["launches"] + plane["launches"] + kws["launches"]
+         + kws_server["launches"] + audio["launches"],
          "max_abs_err": max(errs["tcn_block"], audio_errs["tcn_block"],
                             kws_errs["tcn_block"]),
          "bound_peak": PEAK_NAMES[PEAK_FP32_FLOPS], **tb_time},

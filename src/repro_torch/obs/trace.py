@@ -1,0 +1,164 @@
+"""Chrome-trace / Perfetto span tracer for host-side scheduler decisions.
+
+The port of ``repro/obs/trace.py``, pure Python.  Records when each
+dispatch ran and for how long (keyed by tick shape), which bind evicted
+which victim, park/resume and the plane's batches.  Events are
+ring-buffered (the newest ``capacity`` win; ``dropped`` counts the rest)
+and exported as Trace Event Format JSON for https://ui.perfetto.dev or
+chrome://tracing:
+
+    from repro_torch.obs import trace
+    with trace.span("dispatch", cat="tcn", shape="T16", lanes=12):
+        ...                       # complete event "X" with measured dur
+    trace.instant("evict", sid=3)
+    trace.counter("parking", parked=7, bound=16)
+    trace.export("trace.json")
+
+A disabled tracer (the default) costs one attribute load and a truthiness
+check per call: ``span()`` returns a shared no-op context manager.  The
+process-global tracer is enabled by ``REPRO_TORCH_TRACE=/path/trace.json``
+at import time, with an export to that path at exit; services take a
+``tracer=`` argument and default to the global one.  A span times the
+host: a dispatch span of the TCN service ends after the tick's outputs
+reached the host, so it covers the device work too.
+"""
+
+from __future__ import annotations
+
+import atexit
+import json
+import os
+import threading
+import time
+from collections import deque
+
+ENV_VAR = "REPRO_TORCH_TRACE"
+
+
+class _NullSpan:
+    """Shared no-op context manager — the disabled tracer's span()."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NULL_SPAN = _NullSpan()
+
+
+class _Span:
+    __slots__ = ("_tracer", "name", "cat", "args", "_t0")
+
+    def __init__(self, tracer, name, cat, args):
+        self._tracer = tracer
+        self.name = name
+        self.cat = cat
+        self.args = args
+
+    def __enter__(self):
+        self._t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        t1 = time.perf_counter_ns()
+        self._tracer._push({
+            "name": self.name, "ph": "X", "cat": self.cat or "repro",
+            "ts": self._t0 / 1e3, "dur": (t1 - self._t0) / 1e3,
+            "pid": self._tracer.pid, "tid": self._tracer._tid(),
+            "args": self.args})
+        return False
+
+
+class Tracer:
+    """Ring-buffered Trace Event Format recorder.
+
+    ``ts``/``dur`` are microseconds on the ``time.perf_counter_ns`` clock
+    (monotonic; one clock for every event, so spans nest correctly in the
+    viewer).  Thread identity comes from ``threading.get_native_id``, so
+    events of different threads land on separate rows."""
+
+    def __init__(self, *, enabled: bool = False, capacity: int = 65536,
+                 pid: int | None = None):
+        self.enabled = enabled
+        self.pid = os.getpid() if pid is None else pid
+        self._events: deque = deque(maxlen=capacity)
+        self.dropped = 0  # events that fell off the ring
+
+    def enable(self) -> None:
+        self.enabled = True
+
+    def disable(self) -> None:
+        self.enabled = False
+
+    def _tid(self) -> int:
+        return threading.get_native_id()
+
+    def _push(self, ev: dict) -> None:
+        if len(self._events) == self._events.maxlen:
+            self.dropped += 1
+        self._events.append(ev)
+
+    # -- recording ----------------------------------------------------------
+    def span(self, name: str, cat: str = "", **args):
+        """Context manager for a complete ("X") event: duration measured
+        between __enter__ and __exit__."""
+        if not self.enabled:
+            return _NULL_SPAN
+        return _Span(self, name, cat, args)
+
+    def instant(self, name: str, cat: str = "", **args) -> None:
+        """Zero-duration marker ("i" event) — scheduler decisions (evict,
+        retire, admit) that have a moment, not an extent."""
+        if not self.enabled:
+            return
+        self._push({"name": name, "ph": "i", "s": "t",
+                    "cat": cat or "repro", "ts": time.perf_counter_ns() / 1e3,
+                    "pid": self.pid, "tid": self._tid(), "args": args})
+
+    def counter(self, name: str, **values) -> None:
+        """Chrome "C" counter event — renders as a stacked area track
+        (e.g. bound vs parked session counts over the run)."""
+        if not self.enabled:
+            return
+        self._push({"name": name, "ph": "C",
+                    "ts": time.perf_counter_ns() / 1e3,
+                    "pid": self.pid, "tid": self._tid(), "args": values})
+
+    # -- export -------------------------------------------------------------
+    def events(self) -> list[dict]:
+        return list(self._events)
+
+    def clear(self) -> None:
+        self._events.clear()
+        self.dropped = 0
+
+    def export(self, path: str) -> str:
+        """Write Trace Event Format JSON ({"traceEvents": [...]}) —
+        loadable by Perfetto and chrome://tracing as-is."""
+        doc = {"traceEvents": self.events(),
+               "displayTimeUnit": "ms",
+               "otherData": {"producer": "repro_torch.obs.trace",
+                             "dropped_events": self.dropped}}
+        with open(path, "w") as f:
+            json.dump(doc, f)
+        return path
+
+
+# -- the process-global tracer ----------------------------------------------
+# REPRO_TORCH_TRACE=path enables it at import time and exports on process
+# exit; services default to this tracer, so the variable alone instruments
+# a whole run.
+
+TRACE_PATH = os.environ.get(ENV_VAR, "").strip()
+trace = Tracer(enabled=bool(TRACE_PATH))
+
+if TRACE_PATH:  # pragma: no cover
+    atexit.register(lambda: trace.export(TRACE_PATH))
+
+
+def get_tracer() -> Tracer:
+    return trace

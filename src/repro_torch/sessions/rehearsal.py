@@ -43,6 +43,10 @@ class RehearsalBuffer:
         # (tenant, way) -> list of (packed u4 codes (ceil(V/2),) u8, scale)
         self._mem: dict[tuple[int, int], list] = {}
         self._seen: dict[tuple[int, int], int] = {}  # shots ever offered
+        # host bytes of every reservoir, kept up to date where shots come
+        # and go: the service reads it after every enroll, where a sum
+        # over the reservoirs would grow with the buffer
+        self._nbytes = 0
 
     @staticmethod
     def _encode(row: np.ndarray):
@@ -68,9 +72,11 @@ class RehearsalBuffer:
             item = self._encode(row)
             if len(mem) < self.cap:
                 mem.append(item)
+                self._nbytes += _shot_bytes(item)
             else:  # reservoir: a uniform sample of all shots offered
                 j = int(self._rng.integers(0, seen + 1))
                 if j < self.cap:
+                    self._nbytes += _shot_bytes(item) - _shot_bytes(mem[j])
                     mem[j] = item
             self._seen[key] = seen + 1
 
@@ -89,7 +95,7 @@ class RehearsalBuffer:
 
     def drop(self, tenant: int) -> None:
         for key in [k for k in self._mem if k[0] == tenant]:
-            del self._mem[key]
+            self._nbytes -= sum(map(_shot_bytes, self._mem.pop(key)))
             self._seen.pop(key, None)
 
     def export_tenant(self, tenant: int) -> dict:
@@ -115,12 +121,16 @@ class RehearsalBuffer:
             key = (tenant, int(way))
             self._mem[key] = list(ent["shots"])
             self._seen[key] = int(ent["seen"])
+            self._nbytes += sum(map(_shot_bytes, self._mem[key]))
 
     def nbytes(self, tenant: int | None = None) -> int:
-        """Host bytes of the buffer (packed codes + one fp32 scale a shot)."""
-        total = 0
-        for (t, _), mem in self._mem.items():
-            if tenant is not None and t != tenant:
-                continue
-            total += sum(p.nbytes + 4 for p, _ in mem)
-        return total
+        """Host bytes of the buffer (packed codes + one fp32 scale a shot),
+        or of one tenant's reservoirs."""
+        if tenant is None:
+            return self._nbytes
+        return sum(sum(map(_shot_bytes, mem))
+                   for (t, _), mem in self._mem.items() if t == tenant)
+
+
+def _shot_bytes(item) -> int:
+    return np.asarray(item[0]).nbytes + 4

@@ -3,25 +3,34 @@
 The port of ``repro/sessions/service.py``, TCN half:
 
 ``SlotGridService`` is the service-agnostic core: a fixed slot grid,
-admission control and LRU/cost eviction (sessions/scheduler), a host-side
-parking lot of packed slot columns, and power-of-two chunk buckets.
-Concrete services supply ``_pack``/``_unpack``/``_reset``.
+admission control and LRU/cost-aware eviction (sessions/scheduler), a
+host-side parking lot of packed slot columns with incremental byte
+accounting, power-of-two chunk buckets, the telemetry (a metrics
+registry, a tracer, per-shape dispatch latency), spill/restore of the
+parking lot through checkpoint/store, and the handoff verbs the serving
+plane builds on (``export_session``/``detach_session``/``adopt_session``).
+Concrete services supply ``_pack``/``_unpack``/``_reset`` and the spill
+meta hooks.
 
 ``StreamSessionService`` is the TCN streaming façade:
 
     open_session / push_audio / enroll_shots / poll / park / resume / close
 
-``push_audio`` takes ragged per-session chunks {sid: (t_i, C_in)}, pads
-them onto the (S, T_chunk) grid and advances every pushed session per
-tick; short chunks and absent sessions stay frozen.  ``fused=True`` (the
-default, so a service on the card runs the kernels) bakes BN and the
-log2 weight quantization once at construction
-(models/tcn.bake_stream_params) and runs each tick's TCN body through one
-``tcn_chunk`` kernel launch; ``fused=False`` runs the plain per-step
-executor, the reference the fused path is tested against.  Enrollment
-embeds shots through ``make_fused_forward`` on a fused service (the
-``tcn_block`` strip kernel) and through the eval-mode forward otherwise.
-A parked session resumes bit-exactly in any free slot.
+with ``push = push_audio`` and ``enroll = enroll_shots``, the
+``SessionService`` protocol verbs (sessions/__init__.py).  ``push_audio``
+takes ragged per-session chunks {sid: (t_i, C_in)}, pads them onto the
+(S, T_chunk) grid and advances every pushed session per tick; short
+chunks and absent sessions stay frozen.  ``fused=True`` (the default, so
+a service on the card runs the kernels; ``REPRO_TORCH_TCN_FUSED`` or
+``runtime=`` set it otherwise) bakes BN and the log2 weight quantization
+once at construction (models/tcn.bake_stream_params) and runs each tick's
+TCN body through one ``tcn_chunk`` kernel launch; ``fused=False`` runs the
+plain per-step executor, the reference the fused path is tested against.
+Enrollment embeds shots through ``make_fused_forward`` on a fused service
+(the ``tcn_block`` strip kernel) and through the eval-mode forward
+otherwise.  A parked session resumes bit-exactly in any free slot, and
+in any service of the same configuration, so a spilled lot restores into
+a fresh service and a detached session continues on a peer.
 
 Tenant banks are dense (``TenantBank``, max_tenants x max_ways rows) or,
 with ``paged_bank=True``, paged (sessions/bankpool.py): way rows are
@@ -41,26 +50,37 @@ in place (``make_grid_fused(inplace=True)``) and moves only the chunk's
 new ring rows, not a copy of every ring; parking copies a slot's column
 out, and resuming writes it back in place.
 
-Counters are plain integers (``dispatches``, ``evictions``, ``enrolls``).
-Not ported yet: the ``SessionService`` protocol verbs (``push``,
-``enroll``), cost-aware eviction options, spill/restore and the session
-handoff verbs, meshes, in-dispatch device counters, metrics and trace.
+Telemetry: ``dispatches``/``evictions``/``enrolls`` read the service's
+``MetricsRegistry`` (``metrics()`` returns its snapshot), each tick is a
+``dispatch`` span of the tracer and one sample of the
+``dispatch_latency_us`` histogram of its shape, timed after the tick's
+outputs reached the host (so it includes the device work), and
+``device_counters=True`` adds the tick's occupancy, computed on the
+device from the tick's lengths (obs/device.py).  The reference's ``mesh=``
+(and its ``grid_pspecs``/``bank_pspecs``) is not ported: the port runs on
+one card.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.store import load_sessions, save_sessions
+from repro_torch.configs.runtime import RuntimeConfig
 from repro_torch.core.protonet import pn_logits_rows
 from repro_torch.models.tcn import (
     bake_stream_params,
     make_fused_forward,
     tcn_empty_state,
 )
+from repro_torch.obs.device import decode_occupancy, occupancy_stats
+from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.trace import get_tracer
 from repro_torch.sessions.bankpool import PagedBankPool, paged_bank_fc
 from repro_torch.sessions.rehearsal import RehearsalBuffer
 from repro_torch.sessions.scheduler import AdmissionError, SlotScheduler
@@ -97,27 +117,135 @@ class SessionRecord:
 
 
 class SlotGridService:
-    """Fixed slot grid + scheduler + parking lot.  Subclasses provide
-    ``_pack(slot, sid)``, ``_unpack(slot, blob)`` and ``_reset(slot)``."""
+    """Fixed slot grid + scheduler + parking lot + persistence.
 
-    _service_name = "grid"
+    Subclasses provide ``_pack(slot, sid)``, ``_unpack(slot, blob)`` and
+    ``_reset(slot)``, and may override the lifecycle hooks
+    (``_on_bind``/``_on_unbind``/``_on_evict``/``_on_close``) and the
+    spill/restore and adoption hooks."""
+
+    _session_cls = SessionRecord
+    _service_name = "grid"  # metrics/trace label; subclasses override
+    # services with per-tenant state (prototype banks) set this, so the
+    # serving plane forwards its routing tenant into open_session too
+    tenant_aware = False
 
     def __init__(self, n_slots: int, *, t_chunk: int = 1,
-                 max_sessions: int | None = None):
+                 max_sessions: int | None = None,
+                 cost_fn: Callable[[int], float] | None = None,
+                 stale_window: int = 0,
+                 metrics: MetricsRegistry | None = None,
+                 tracer=None, device_counters: bool | None = None,
+                 runtime: RuntimeConfig | None = None):
         if t_chunk < 1:
             raise ValueError(f"t_chunk must be >= 1, got {t_chunk}")
         self.n_slots = n_slots
         self.t_chunk = t_chunk
-        self.sched = SlotScheduler(n_slots, max_sessions)
+        self.sched = SlotScheduler(n_slots, max_sessions, cost_fn=cost_fn,
+                                   stale_window=stale_window)
         self.parking: dict[int, dict] = {}   # sid -> host blob
         self.sessions: dict[int, Any] = {}   # sid -> session record
         self._next_sid = 0
-        self.dispatches = 0  # executor calls (one per tick)
-        self.evictions = 0
+        # process switches: explicit kwarg > runtime/env > default
+        self.runtime = runtime if runtime is not None \
+            else RuntimeConfig.resolve()
+        # telemetry: one registry per service unless ``metrics=`` shares
+        # one; the tracer defaults to the process-global one
+        self.metrics_registry = metrics if metrics is not None \
+            else MetricsRegistry()
+        self.tracer = tracer if tracer is not None else get_tracer()
+        self.device_counters = bool(
+            self.runtime.pick("device_counters", device_counters))
+        svc = self._service_name
+        reg = self.metrics_registry
+        self._c_dispatches = reg.counter("dispatches_total", service=svc)
+        self._c_evictions = reg.counter("evictions_total", service=svc)
+        self._g_bound = reg.gauge("sessions_bound", service=svc)
+        self._g_parked = reg.gauge("sessions_parked", service=svc)
+        # the parking lot's host bytes, kept up to date where blobs are
+        # stored and taken (summing every blob per change would cost
+        # O(parked x leaves) on the bind path)
+        self._g_parked_bytes = reg.gauge("parked_bytes", service=svc)
+        self._parked_blob_bytes: dict[int, int] = {}  # sid -> host bytes
+        self._lat_hists: dict[str, Any] = {}  # shape -> Histogram
 
+    # -- parking-lot accounting ---------------------------------------------
     @property
     def parked_blob_bytes(self) -> int:
-        return sum(parked_bytes(b) for b in self.parking.values())
+        """Host bytes of the parking lot (nibble-packed leaves count as
+        stored)."""
+        return sum(self._parked_blob_bytes.values())
+
+    def _park_store(self, sid: int, blob) -> None:
+        self.parking[sid] = blob
+        self._parked_blob_bytes[sid] = parked_bytes(blob)
+        self._g_parked_bytes.set(self.parked_blob_bytes)
+
+    def _park_take(self, sid: int, default=None):
+        blob = self.parking.pop(sid, default)
+        if self._parked_blob_bytes.pop(sid, None) is not None:
+            self._g_parked_bytes.set(self.parked_blob_bytes)
+        return blob
+
+    # -- telemetry ----------------------------------------------------------
+    # the counters read and write through the registry, so
+    # ``svc.dispatches`` and ``svc.metrics()["dispatches_total"]`` agree
+    @property
+    def dispatches(self) -> int:
+        """Ticks run (one executor call each)."""
+        return int(self._c_dispatches.value)
+
+    @dispatches.setter
+    def dispatches(self, v: int) -> None:
+        self._c_dispatches.value = v
+
+    @property
+    def evictions(self) -> int:
+        return int(self._c_evictions.value)
+
+    @evictions.setter
+    def evictions(self, v: int) -> None:
+        self._c_evictions.value = v
+
+    def metrics(self) -> dict:
+        """JSON snapshot of the service's metrics registry."""
+        return self.metrics_registry.snapshot()
+
+    def _latency_hist(self, shape: str):
+        h = self._lat_hists.get(shape)
+        if h is None:
+            h = self.metrics_registry.histogram(
+                "dispatch_latency_us", service=self._service_name,
+                shape=shape)
+            self._lat_hists[shape] = h
+        return h
+
+    def _record_dispatch(self, seconds: float, shape: str) -> None:
+        """One tick completed: count it, record its wall time in its
+        shape's log2 histogram, refresh the occupancy gauges."""
+        self._c_dispatches.inc()
+        self._latency_hist(shape).record(seconds * 1e6)
+        self._g_bound.set(len(self.sched.slot_of))
+        self._g_parked.set(len(self.parking))
+        self.tracer.counter(f"{self._service_name}_sessions",
+                            bound=len(self.sched.slot_of),
+                            parked=len(self.parking))
+
+    def _ingest_occupancy(self, stats) -> None:
+        """Fold one tick's device occupancy vector
+        (obs.device.occupancy_stats) into the registry."""
+        occ = decode_occupancy(stats)
+        svc = self._service_name
+        reg = self.metrics_registry
+        reg.counter("device_live_steps_total", service=svc).inc(
+            occ["live_steps"])
+        reg.counter("device_masked_steps_total", service=svc).inc(
+            occ["total_steps"] - occ["live_steps"])
+        reg.gauge("device_lane_occupancy", service=svc).set(
+            occ["lane_occupancy"])
+        reg.gauge("device_pad_waste", service=svc).set(occ["pad_waste"])
+        reg.gauge("device_live_step_ratio", service=svc).set(
+            occ["live_step_ratio"])
 
     # -- state hooks (subclass responsibility) ------------------------------
     def _pack(self, slot: int, sid: int) -> dict:
@@ -149,46 +277,83 @@ class SlotGridService:
         self._next_sid += 1
         return sid
 
+    def open_session(self, **kw) -> int:
+        """Admit a session and place it on a slot (may evict an idle one)."""
+        sid = self._alloc_sid()
+        self.sched.admit(sid)  # may raise AdmissionError (back-pressure)
+        self.sessions[sid] = self._session_cls(**kw)
+        self._bind(sid)
+        return sid
+
     def _bind(self, sid: int, pinned: set[int] = frozenset()) -> int:
-        slot, evicted = self.sched.bind(sid, pinned)
-        if evicted is not None:
-            self.parking[evicted] = self._pack(slot, evicted)
-            self.evictions += 1
-            self._on_evict(evicted, slot)
-        if sid in self.parking:
-            self._unpack(slot, self.parking.pop(sid))
-        elif self.sessions[sid].steps == 0:
-            self._reset(slot)
-        else:  # rebinding after evicted==None cannot lose state
-            raise AssertionError("bound session missing parked state")
-        self._on_bind(sid, slot)
+        name = self._service_name
+        with self.tracer.span("bind", cat=name, sid=sid):
+            slot, evicted = self.sched.bind(sid, pinned)
+            if evicted is not None:
+                with self.tracer.span("pack", cat=name, sid=evicted,
+                                      slot=slot):
+                    blob = self._pack(slot, evicted)
+                self._park_store(evicted, blob)
+                self._c_evictions.inc()
+                self._on_evict(evicted, slot)
+                if self.tracer.enabled:
+                    cost = self.sched.cost_fn(evicted) \
+                        if self.sched.cost_fn is not None else None
+                    self.tracer.instant("evict", cat=name, victim=evicted,
+                                        slot=slot, for_sid=sid,
+                                        park_cost=cost)
+            if sid in self.parking:
+                with self.tracer.span("unpack", cat=name, sid=sid,
+                                      slot=slot):
+                    self._unpack(slot, self._park_take(sid))
+                self.tracer.instant("resume", cat=name, sid=sid, slot=slot)
+            elif self.sessions[sid].steps == 0:
+                self._reset(slot)
+            else:  # rebinding after evicted==None cannot lose state
+                raise AssertionError("bound session missing parked state")
+            self._on_bind(sid, slot)
         return slot
 
     def park(self, sid: int) -> None:
-        """Swap a session's slot column to host memory (no-op if parked)."""
+        """Swap a session's slot column to host memory (no-op if parked).
+        Raises ``KeyError`` for a sid that was never admitted."""
         if sid not in self.sessions:
             raise KeyError(f"unknown session {sid}")
         slot = self.sched.park(sid)
         if slot is not None:
-            self.parking[sid] = self._pack(slot, sid)
+            with self.tracer.span("park", cat=self._service_name, sid=sid,
+                                  slot=slot):
+                self._park_store(sid, self._pack(slot, sid))
             self._on_unbind(slot)
 
     def resume(self, sid: int) -> None:
         """Bind a parked session back onto a slot without advancing it
-        (``push`` also resumes lazily, so this only prepays the unpack)."""
+        (``push`` also resumes lazily, so this only prepays the unpack).
+        Raises ``KeyError`` for a sid that was never admitted."""
         if sid not in self.sessions:
             raise KeyError(f"unknown session {sid}")
         self.sched.touch(sid)
         if not self.sched.is_bound(sid):
             self._bind(sid)
 
+    def push(self, work: dict[int, Any]) -> dict[int, Any]:
+        """Advance sessions by one ragged batch of work (the protocol hot
+        path; the TCN service aliases ``push_audio`` here)."""
+        raise NotImplementedError
+
     def close(self, sid: int) -> None:
         slot = self.sched.release(sid)
         if slot is not None:
             self._on_unbind(slot)
-        self.parking.pop(sid, None)
+        self._park_take(sid)
         sess = self.sessions.pop(sid)
         self._on_close(sid, sess)
+
+    def enroll(self, sid: int, shots, **kwargs) -> int:
+        """Protocol verb: streaming learning.  Services with a learnable
+        head override it; the others keep the surface and refuse."""
+        raise NotImplementedError(
+            f"{self._service_name} service does not support enrollment")
 
     def _touch_and_bind(self, sids) -> None:
         """Pin this tick's sessions, then bind any that are parked."""
@@ -210,14 +375,140 @@ class SlotGridService:
             n <<= 1
         return min(n, self.t_chunk)
 
+    # -- persistence --------------------------------------------------------
+    def _session_spill_meta(self, sid: int) -> dict:
+        return {"steps": self.sessions[sid].steps}
+
+    def _spill_extra(self) -> dict:
+        return {}
+
+    def _restore_validate(self, parking: dict, meta: dict) -> None:
+        pass
+
+    def _restore_apply(self, meta: dict) -> None:
+        pass
+
+    def _restore_session(self, info: dict):
+        return self._session_cls(steps=int(info.get("steps", 0)))
+
+    def spill_parking(self, path: str, *, include_bound: bool = False) -> str:
+        """Write the parking lot to ``path`` (checkpoint/store), so
+        sessions survive a restart.  ``include_bound=True`` parks every
+        bound session first (a full drain for a planned shutdown)."""
+        if include_bound:
+            for sid in list(self.sched.slot_of):
+                self.park(sid)
+        meta = {"next_sid": self._next_sid,
+                "sessions": {str(sid): self._session_spill_meta(sid)
+                             for sid in self.parking}}
+        meta.update(self._spill_extra())
+        return save_sessions(path, self.parking, meta)
+
+    def restore_parking(self, path: str) -> list[int]:
+        """Adopt a spilled parking lot into this (possibly fresh) service:
+        sessions come back parked, with their sids and host records; the
+        next push resumes them bit-exactly.  Returns the restored sids.
+
+        All or nothing: every check (sid collisions, admission capacity,
+        the service's own validation) runs before the first change, so a
+        refused restore leaves the service untouched."""
+        parking, meta = load_sessions(path)
+        meta = meta or {"next_sid": 0, "sessions": {}}
+        for sid in sorted(parking):
+            if sid in self.sessions:
+                raise ValueError(f"session {sid} already live; refuse to "
+                                 "overwrite on restore")
+        cap = self.sched.max_sessions
+        if cap is not None and self.sched.live_sessions + len(parking) > cap:
+            raise AdmissionError(
+                f"restoring {len(parking)} sessions would exceed capacity "
+                f"({self.sched.live_sessions}/{cap} live)")
+        self._restore_validate(parking, meta)
+        self._restore_apply(meta)
+        restored = []
+        for sid, parked in sorted(parking.items()):
+            info = meta["sessions"].get(str(sid), {})
+            self.sched.admit(sid)
+            self.sessions[sid] = self._restore_session(info)
+            self._park_store(sid, parked)
+            restored.append(sid)
+        self._next_sid = max(self._next_sid, int(meta.get("next_sid", 0)))
+        return restored
+
+    # -- live handoff / crash recovery --------------------------------------
+    # The serving plane's drain, recovery, stealing and spill journal rest
+    # on these verbs, which reuse park/spill, so every bit-exactness
+    # property of park/resume carries over to a handoff.
+
+    def export_session(self, sid: int) -> tuple[dict, dict]:
+        """Snapshot one live session as ``(parked blob, spill meta)``
+        without closing it.  A bound session is parked first (bit-exact,
+        so the snapshot changes nothing) and re-binds on its next push.
+        Raises ``KeyError`` for an unknown sid and ``RuntimeError`` for a
+        session with no packable state."""
+        if sid not in self.sessions:
+            raise KeyError(f"unknown session {sid}")
+        self.park(sid)
+        if sid not in self.parking:
+            raise RuntimeError(f"session {sid} holds no packable state; "
+                               "nothing to export")
+        return self.parking[sid], self._session_spill_meta(sid)
+
+    def detach_session(self, sid: int) -> tuple[dict, dict]:
+        """Remove a session and return its packed ``(blob, meta)`` for
+        adoption by a peer (drain handoff, work stealing).  Unlike
+        ``close`` the session is not ending: ``_on_close`` does not fire
+        (a dedicated tenant stays); the meta carries what the peer needs to
+        rebuild the host record through ``adopt_session``."""
+        blob, meta = self.export_session(sid)
+        self._park_take(sid)
+        self.sched.release(sid)
+        self.sessions.pop(sid)
+        return blob, meta
+
+    def adopt_session(self, blob: dict, meta: dict) -> int:
+        """Admit a session exported by a peer under a fresh local sid
+        (sids of different services may collide).  It enters parked and
+        its next push resumes it bit-exactly.  Validation (geometry,
+        capacity) runs before the first change."""
+        meta = dict(meta or {})
+        self._adopt_validate(blob, meta)
+        cap = self.sched.max_sessions
+        if cap is not None and self.sched.live_sessions + 1 > cap:
+            raise AdmissionError(
+                f"adopting a session would exceed capacity "
+                f"({self.sched.live_sessions}/{cap} live)")
+        sid = self._alloc_sid()
+        self.sched.admit(sid)
+        self.sessions[sid] = self._restore_session(meta)
+        self._park_store(sid, blob)
+        return sid
+
+    def _adopt_validate(self, blob: dict, meta: dict) -> None:
+        """Hook: refuse an incompatible blob before any change."""
+
+    # -- tenant-state handoff (tenant-aware services override) --------------
+    def live_tenants(self) -> list:
+        return []
+
+    def export_tenant(self, tenant) -> dict:
+        raise NotImplementedError(
+            f"{self._service_name} service has no per-tenant state")
+
+    def adopt_tenant(self, tenant, blob: dict) -> int:
+        raise NotImplementedError(
+            f"{self._service_name} service has no per-tenant state")
+
     # -- introspection ------------------------------------------------------
     def _slot_state_bytes(self) -> int:
+        """Structural parked footprint of one session (content-free)."""
         raise NotImplementedError
 
     def _extra_stats(self) -> dict:
         return {}
 
     def stats(self) -> dict:
+        """The keys of sessions.STATS_SCHEMA, then the service's extras."""
         return {
             "service": self._service_name,
             "n_slots": self.n_slots,
@@ -243,24 +534,35 @@ class StreamSessionService(SlotGridService):
     """Multi-tenant streaming TCN service over a fixed slot grid, on the
     bundle's device."""
 
+    _session_cls = _Session
     _service_name = "tcn"
+    tenant_aware = True  # plane routing tenants bind real bank rows here
 
     def __init__(self, bundle, params, bn_state=None, *, n_slots: int = 8,
                  max_tenants: int = 8, max_ways: int = 8,
                  max_sessions: int | None = None, quantize: bool = False,
-                 t_chunk: int = 16, fused: bool = True,
+                 t_chunk: int = 16,
+                 cost_fn: Callable[[int], float] | None = None,
+                 stale_window: int = 0, fused: bool | None = None,
                  kernel_backend: str | None = None,
                  paged_bank: bool = False, bank_block_ways: int = 4,
-                 bank_blocks: int | None = None, rehearsal_cap: int = 0):
-        super().__init__(n_slots, t_chunk=t_chunk, max_sessions=max_sessions)
+                 bank_blocks: int | None = None, rehearsal_cap: int = 0,
+                 metrics: MetricsRegistry | None = None, tracer=None,
+                 device_counters: bool | None = None,
+                 runtime: RuntimeConfig | None = None):
+        super().__init__(n_slots, t_chunk=t_chunk, max_sessions=max_sessions,
+                         cost_fn=cost_fn, stale_window=stale_window,
+                         metrics=metrics, tracer=tracer,
+                         device_counters=device_counters, runtime=runtime)
         cfg = bundle.cfg
         dev = bundle.device
         self.cfg = cfg
         self.device = dev
         self.max_ways = max_ways
         self.quantize = quantize
-        self.fused = fused
-        self.enrolls = 0
+        # explicit kwarg > runtime / REPRO_TORCH_TCN_FUSED > on
+        self.fused = bool(self.runtime.pick("fused", fused))
+        kernel_backend = self.runtime.pick("kernel_backend", kernel_backend)
         bn_state = bn_state if bn_state is not None \
             else tcn_empty_state(cfg, dev)
         self._fused_params = None
@@ -302,6 +604,23 @@ class StreamSessionService(SlotGridService):
         # bounded latent-replay memory (sessions/rehearsal.py)
         self.rehearsal = RehearsalBuffer(rehearsal_cap) \
             if rehearsal_cap > 0 else None
+        reg = self.metrics_registry
+        self._c_enrolls = reg.counter("enrolls_total", service="tcn")
+        self._c_enroll_shots = reg.counter("enroll_shots_total", service="tcn")
+        self._h_enroll = reg.histogram("enroll_latency_us", service="tcn")
+        if self.paged_bank:
+            self._g_pool_live = reg.gauge("bank_pool_blocks_live",
+                                          service="tcn")
+            self._g_pool_free = reg.gauge("bank_pool_blocks_free",
+                                          service="tcn")
+            self._update_pool_gauges()
+        if self.rehearsal is not None:
+            self._g_rehearsal_bytes = reg.gauge("rehearsal_bytes",
+                                                service="tcn")
+
+    @property
+    def enrolls(self) -> int:
+        return int(self._c_enrolls.value)
 
     # -- slot-column state hooks --------------------------------------------
     def _pack(self, slot: int, sid: int) -> dict:
@@ -341,10 +660,16 @@ class StreamSessionService(SlotGridService):
                 and self.bankpool.is_resident(tenant)
                 and self._tenant_idle(tenant)):
             self.bankpool.park(tenant)
+            self._update_pool_gauges()
 
     def _ensure_bank_resident(self, tenant: int) -> None:
         if self.paged_bank and not self.bankpool.is_resident(tenant):
             self.bankpool.unpark(tenant)  # may raise PoolExhausted
+            self._update_pool_gauges()
+
+    def _update_pool_gauges(self) -> None:
+        self._g_pool_live.set(self.bankpool.pool.n_live)
+        self._g_pool_free.set(self.bankpool.pool.n_free)
 
     def create_tenant(self) -> int:
         if not self._free_tenants:
@@ -359,6 +684,7 @@ class StreamSessionService(SlotGridService):
             raise RuntimeError(f"tenant {tenant} still has open sessions")
         if self.paged_bank:
             self.bankpool.drop(tenant)
+            self._update_pool_gauges()
         else:
             self.bank = bank_clear_tenant(self.bank, tenant)
         self._tenant_labels.pop(tenant, None)
@@ -407,6 +733,61 @@ class StreamSessionService(SlotGridService):
                 sharers[0].dedicated = True
             else:
                 self.close_tenant(sess.tenant)
+
+    # -- persistence hooks ---------------------------------------------------
+    def _session_spill_meta(self, sid: int) -> dict:
+        s = self.sessions[sid]
+        return {"tenant": s.tenant, "dedicated": s.dedicated, "steps": s.steps}
+
+    def _spill_extra(self) -> dict:
+        """Each parked session's tenant bank, JSON-able: the paged pool's
+        ``pack`` or the dense row through ``.tolist()`` (the reference's
+        meta layout, so a spill crosses between the packages)."""
+        tenant_meta = {}
+        for sid in self.parking:
+            t = self.sessions[sid].tenant
+            if t == NO_TENANT or str(t) in tenant_meta:
+                continue
+            if self.paged_bank:
+                tenant_meta[str(t)] = self.bankpool.pack(t)
+            else:
+                row = bank_pack_tenant(self.bank, t)
+                tenant_meta[str(t)] = {
+                    "s_sums": row["s_sums"].tolist(),
+                    "counts": row["counts"].tolist(),
+                    "n_ways": int(self._tenant_ways[t]),
+                }
+        return {"tenants": tenant_meta}
+
+    def _restore_validate(self, parking: dict, meta: dict) -> None:
+        for t_str in meta.get("tenants", {}):
+            t = int(t_str)
+            if t >= len(self._tenant_ways):
+                raise ValueError(f"spill references tenant {t} beyond "
+                                 f"max_tenants={len(self._tenant_ways)}")
+            if t not in self._free_tenants:
+                raise ValueError(f"tenant {t} already in use; refuse to "
+                                 "overwrite its prototype row on restore")
+
+    def _restore_apply(self, meta: dict) -> None:
+        for t_str, row in meta.get("tenants", {}).items():
+            t = int(t_str)
+            self._free_tenants.remove(t)
+            if self.paged_bank:
+                # adopted parked (zero device rows); the first push or
+                # enroll makes it resident
+                self.bankpool.adopt(t, row)
+            else:
+                self.bank = bank_unpack_tenant(self.bank, t, {
+                    "s_sums": np.asarray(row["s_sums"], np.float32),
+                    "counts": np.asarray(row["counts"], np.float32),
+                    "n_ways": np.asarray(row["n_ways"], np.int32)})
+            self._tenant_ways[t] = int(row["n_ways"])
+
+    def _restore_session(self, info: dict):
+        return _Session(tenant=int(info.get("tenant", NO_TENANT)),
+                        dedicated=bool(info.get("dedicated", False)),
+                        steps=int(info.get("steps", 0)))
 
     # -- the hot path -------------------------------------------------------
     def _slot_fc(self):
@@ -485,23 +866,35 @@ class StreamSessionService(SlotGridService):
                 if seg.shape[0]:
                     x[slot_of[sid], :seg.shape[0]] = seg
                     tick_lens[slot_of[sid]] = seg.shape[0]
-            xt = torch.from_numpy(x).to(self.device)
-            lt = torch.from_numpy(tick_lens).to(self.device)
-            if self.fused:
-                self.states, emb, logits = self._fused_chunk(
-                    self._fused_params, self.states, xt, lt)
-            else:
-                valid = torch.arange(t_pad, device=self.device)[None, :] \
-                    < lt[:, None]
-                self.states, emb, logits = grid_scan(
-                    self._params, self._bn, self.cfg, self.states, xt, valid,
-                    quantize=self.quantize)
-            # the paged table is block-granular (>= max_ways): keep the
-            # result surface layout-independent
-            tlogits = self._banked(emb, w, b)[..., :self.max_ways]
-            emb, logits, tlogits = (emb.cpu().numpy(), logits.cpu().numpy(),
-                                    tlogits.cpu().numpy())
-            self.dispatches += 1
+            shape = f"T{t_pad}"
+            t0 = time.perf_counter()
+            with self.tracer.span("dispatch", cat="tcn", shape=shape,
+                                  lanes=len(arrs), fused=self.fused):
+                xt = torch.from_numpy(x).to(self.device)
+                lt = torch.from_numpy(tick_lens).to(self.device)
+                if self.fused:
+                    self.states, emb, logits = self._fused_chunk(
+                        self._fused_params, self.states, xt, lt)
+                else:
+                    valid = torch.arange(t_pad, device=self.device)[None, :] \
+                        < lt[:, None]
+                    self.states, emb, logits = grid_scan(
+                        self._params, self._bn, self.cfg, self.states, xt,
+                        valid, quantize=self.quantize)
+                # the paged table is block-granular (>= max_ways): keep the
+                # result surface layout-independent
+                tlogits = self._banked(emb, w, b)[..., :self.max_ways]
+                # the occupancy reduces the uploaded lengths on the device;
+                # its copy is queued ahead of the outputs' blocking copies
+                # on the same stream, so it adds no wait of its own
+                occ = occupancy_stats(lt, t_pad).to("cpu", non_blocking=True) \
+                    if self.device_counters else None
+                emb, logits, tlogits = (emb.cpu().numpy(),
+                                        logits.cpu().numpy(),
+                                        tlogits.cpu().numpy())
+            self._record_dispatch(time.perf_counter() - t0, shape)
+            if occ is not None:
+                self._ingest_occupancy(occ.numpy())
             for sid in arrs:
                 n = min(max(lens[sid] - off, 0), t_pad)
                 if n:
@@ -528,6 +921,9 @@ class StreamSessionService(SlotGridService):
             out[sid] = res
         return out
 
+    # protocol verb (sessions.SessionService): the TCN payload is audio
+    push = push_audio
+
     # -- FSL / CL enrollment (live, mid-stream) -----------------------------
     def enroll_shots(self, sid: int, shots, *, embedded: bool = False,
                      way: int | None = None, label=None) -> int:
@@ -540,11 +936,24 @@ class StreamSessionService(SlotGridService):
         Paged: the tenant's rows grow a block at a time from the shared
         pool (``PoolExhausted`` is back-pressure), and a parked tenant is
         made resident for the update and parked again if none of its
-        sessions is bound."""
+        sessions is bound.  The latency recorded in ``enroll_latency_us``
+        ends when the bank update has landed on the device."""
+        t0 = time.perf_counter()
         tenant = self.sessions[sid].tenant
         if tenant == NO_TENANT:
             raise ValueError("session has no tenant; open with tenant=None "
                              "or an explicit tenant id to personalize")
+        with self.tracer.span("enroll", cat="tcn", sid=sid, tenant=tenant):
+            way = self._enroll(tenant, shots, embedded, way, label)
+        self._c_enrolls.inc()
+        self._c_enroll_shots.inc(len(shots))
+        self._h_enroll.record((time.perf_counter() - t0) * 1e6)
+        return way
+
+    # protocol verb (sessions.SessionService): learning is first-class
+    enroll = enroll_shots
+
+    def _enroll(self, tenant: int, shots, embedded: bool, way, label) -> int:
         x = torch.tensor(np.asarray(shots, np.float32)).to(self.device)
         emb = x if embedded else self._embed(x)
         if label is not None:
@@ -558,6 +967,7 @@ class StreamSessionService(SlotGridService):
             if self.paged_bank:
                 self._ensure_bank_resident(tenant)
                 way = self.bankpool.add_class(tenant, emb)
+                self._update_pool_gauges()
             else:
                 self.bank = bank_add_class(self.bank, tenant, emb)
                 way = int(self._tenant_ways[tenant])
@@ -577,8 +987,10 @@ class StreamSessionService(SlotGridService):
                 self.bank = bank_update_class(self.bank, tenant, way, emb)
         if self.rehearsal is not None:
             self.rehearsal.add(tenant, way, emb.cpu().numpy())
+            self._g_rehearsal_bytes.set(self.rehearsal.nbytes())
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)  # the update has landed
         self._maybe_park_tenant(tenant)
-        self.enrolls += 1
         return way
 
     def rehearse_tenant(self, tenant: int) -> int:
@@ -670,6 +1082,17 @@ class StreamSessionService(SlotGridService):
         if self.rehearsal is not None and blob.get("rehearsal"):
             self.rehearsal.adopt_tenant(tenant, blob["rehearsal"])
         return tenant
+
+    def _adopt_validate(self, blob: dict, meta: dict) -> None:
+        t = int(meta.get("tenant", NO_TENANT))
+        if t == NO_TENANT:
+            return
+        if not 0 <= t < len(self._tenant_ways):
+            raise ValueError(f"session references tenant {t} beyond "
+                             f"max_tenants={len(self._tenant_ways)}")
+        if t in self._free_tenants:
+            raise ValueError(f"session references tenant {t} but no such "
+                             "row is in use here; adopt_tenant first")
 
     # -- introspection ------------------------------------------------------
     def poll(self, sid: int) -> dict:

@@ -193,3 +193,10 @@ def slot_park_bytes(cfg: ArchConfig, *, quantize: bool = False) -> int:
                         and not (i == 0 and ring == "ring1"))
             total += n * (c // 2) + 4 if packable else n * c * 4
     return total
+
+
+def slot_state_bytes(states: dict) -> int:
+    """Per-slot state footprint in bytes (host copy of one column)."""
+    leaves = list(_leaves(states))
+    n_slots = leaves[0].shape[0]
+    return sum(a.numel() * a.element_size() for a in leaves) // n_slots

@@ -9,10 +9,12 @@ reference on the same inputs.  Inside the port the checks are bit-exact
 way cap, export/adopt); port against reference, fp32 values are allclose
 at rtol=2e-4, atol=2e-5 with the same -inf pattern.  The rehearsal
 buffer's integer artifacts (packed codes, scales, the reservoir's choices)
-are compared byte for byte.  The port has no serving plane and no
-spill/restore yet, so those three behaviours are held through the service
-verbs they rest on (enroll-before-push order, stats, export/adopt).  The
-reference services run fused with the plain ("ref") kernel backend."""
+are compared byte for byte.  The plane's enroll verb, the paged spill, the
+enroll metrics and the drain handoff are held twice: through the service
+verbs they rest on (enroll-before-push order, stats, export/adopt) and
+through the port's ServingPlane, spill_parking/restore_parking and
+metrics().  The reference services run fused with the plain ("ref")
+kernel backend."""
 
 import functools
 
@@ -401,6 +403,15 @@ def test_rehearsal_bytes_and_choices_match_reference(dim):
                                       src.rebuild(1, 0, dim)[0])
         with pytest.raises(ValueError, match="refuse"):
             dst.adopt_tenant(1, blob)
+        assert dst.nbytes() == src.nbytes(1)
+    # the running byte total follows drops and adoptions
+    for t in (2, 0):
+        tb.drop(t)
+        jb.drop(t)
+        assert tb.nbytes() == jb.nbytes()
+    assert tb.nbytes() == tb.nbytes(1) > 0
+    tb.adopt_tenant(2, jb.export_tenant(1))
+    assert tb.nbytes() == tb.nbytes(1) + tb.nbytes(2) == 2 * jb.nbytes()
 
 
 # ---------------------------------------------------------------------------
@@ -792,3 +803,141 @@ def test_long_chunk_wide_bank_contracts_in_bounded_groups(monkeypatch):
     for r784, r16 in zip(*outs):
         assert r784["tenant_logits"].shape == (784, 250)
         _same_results(r784, r16, exact=True)
+
+
+# ---------------------------------------------------------------------------
+# direct ports of the plane and spill behaviours of tests/test_cl_service.py
+# ---------------------------------------------------------------------------
+
+def test_plane_enroll_verb_routes_and_orders_fifo():
+    import asyncio
+
+    from repro_torch.serving import ServingPlane
+
+    rng = np.random.default_rng(10)
+    shots1 = rng.normal(size=(2, 10, 2)).astype(np.float32)
+    shots2 = rng.normal(size=(1, 10, 2)).astype(np.float32)
+    x = rng.normal(size=(6, 2)).astype(np.float32)
+    svc = _svc(True)
+    plane = ServingPlane(svc, metrics=svc.metrics_registry)
+
+    async def main():
+        async with plane:
+            # the tenant is forwarded to the tenant-aware service, not just
+            # used for routing
+            psid = await plane.open_session(tenant=1)
+            assert (await plane.poll(psid))["tenant"] == 1
+            assert await plane.enroll(psid, shots1) == 0
+            # an enroll queued before a push updates the bank the push reads
+            fe = asyncio.ensure_future(plane.enroll(psid, shots2))
+            fp = asyncio.ensure_future(plane.push(psid, x))
+            way, res = await asyncio.gather(fe, fp)
+            assert way == 1
+            assert np.isfinite(res["tenant_logits"][-1][1])  # sees way 1
+            return res
+
+    res = asyncio.run(main())
+    assert svc.metrics()["plane_enrolls_total"][0]["value"] == 2
+    enrolls = [e["value"] for e in svc.metrics()["enrolls_total"]
+               if e["labels"].get("service") == "tcn"]
+    assert enrolls == [2]
+    assert res["pred"] == int(res["tenant_logits"][-1].argmax())
+    # the same ops on the reference's service give the same logits
+    ref = _svc(True, ref=True)
+    sid = ref.open_session(tenant=1)
+    ref.enroll_shots(sid, shots1)
+    ref.enroll_shots(sid, shots2)
+    _same_results(res, ref.push_audio({sid: x})[sid], exact=False)
+
+
+def test_paged_spill_restore_roundtrip(tmp_path):
+    """A paged tenant's bank rides the spill as the reference's JSON meta,
+    restores parked, and classifies identically."""
+    rng = np.random.default_rng(9)
+    shots = rng.normal(size=(2, 10, 2)).astype(np.float32)
+    x1 = rng.normal(size=(8, 2)).astype(np.float32)
+    x2 = rng.normal(size=(8, 2)).astype(np.float32)
+    svc = _svc(True)
+    sid = svc.open_session(tenant=None)
+    svc.enroll_shots(sid, shots)
+    svc.push_audio({sid: x1})
+    svc.park(sid)
+    path = tmp_path / "spill.json"
+    svc.spill_parking(str(path))
+    fresh = _svc(True)
+    assert fresh.restore_parking(str(path)) == [sid]
+    assert fresh.bankpool.pool.n_live == 0  # restored parked
+    want = svc.push_audio({sid: x2})[sid]
+    got = fresh.push_audio({sid: x2})[sid]
+    np.testing.assert_array_equal(want["tenant_logits"], got["tenant_logits"])
+    _same_results(got, want, exact=True)
+
+
+def test_enroll_metrics_and_stats_surface():
+    svc = _svc(True, rehearsal_cap=2)
+    sid = svc.open_session(tenant=None)
+    svc.enroll_shots(sid, np.ones((3, 12), np.float32), embedded=True)
+    snaps = [svc.metrics()]
+    ref = _svc(True, ref=True, rehearsal_cap=2)
+    ref.enroll_shots(ref.open_session(tenant=None),
+                     np.ones((3, 12), np.float32), embedded=True)
+    snaps.append(ref.metrics())
+    for snap in snaps:
+        get = lambda name: [e for e in snap[name]
+                            if e["labels"].get("service") == "tcn"][0]
+        assert get("enrolls_total")["value"] == 1
+        assert get("enroll_shots_total")["value"] == 3
+        assert get("enroll_latency_us")["count"] == 1
+        assert get("bank_pool_blocks_live")["value"] == 1
+        assert get("rehearsal_bytes")["value"] == 2 * (6 + 4)
+    for name in ("enrolls_total", "enroll_shots_total",
+                 "bank_pool_blocks_live", "bank_pool_blocks_free",
+                 "rehearsal_bytes", "dispatches_total", "evictions_total"):
+        assert snaps[0][name] == snaps[1][name], name
+    st = svc.stats()
+    assert st["paged_bank"] is True and st["enrolls"] == 1
+    assert st["tenant_row_bytes"] == 2 * 13 * 4  # block_ways * (V+1) * fp32
+    assert st["bank_pool_blocks_live"] == 1
+    assert st["rehearsal_bytes"] > 0
+
+
+def test_tenant_bank_mutated_during_drain_lands_on_peer_post_enroll():
+    """An enroll accepted just before drain() applies on the old worker
+    (drain waits for the accepted queue), and the handoff carries the
+    post-enroll bank: the peer classifies like a never-drained control."""
+    import asyncio
+
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.serving import ServingPlane
+
+    rng = np.random.default_rng(12)
+    shots1 = rng.normal(size=(2, 10, 2)).astype(np.float32)
+    shots2 = rng.normal(size=(1, 10, 2)).astype(np.float32)
+    x = rng.normal(size=(6, 2)).astype(np.float32)
+    ctrl = _svc(True)
+    csid = ctrl.open_session(tenant=0)
+    ctrl.enroll_shots(csid, shots1)
+    ctrl.enroll_shots(csid, shots2)
+    want = ctrl.push_audio({csid: x})[csid]
+
+    async def main():
+        plane = ServingPlane([_svc(True), _svc(True)],
+                             metrics=MetricsRegistry())
+        async with plane:
+            psid = await plane.open_session(tenant=0)
+            assert await plane.enroll(psid, shots1) == 0
+            victim = plane._sessions[psid][0]
+            fe = asyncio.ensure_future(plane.enroll(psid, shots2))
+            await asyncio.sleep(0)  # the enroll op is now queued
+            way, summary = await asyncio.gather(fe, plane.drain(victim.idx))
+            assert way == 1
+            assert summary["moved_sessions"] == 1
+            assert summary["moved_tenants"] == 1
+            assert plane._sessions[psid][0] is not victim
+            assert (await plane.poll(psid))["n_ways"] == 2
+            res = await plane.push(psid, x)
+            # the bank keeps learning on the peer
+            assert await plane.enroll(psid, shots2) == 2
+            return res
+
+    _same_results(asyncio.run(main()), want, exact=True)

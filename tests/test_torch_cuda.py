@@ -6,7 +6,9 @@ plain versions' summation order and are compared bit for bit;
 tolerances with the plain products in full fp32 (TF32 switched off around
 them).  The continual-learning service (paged and dense tenant banks,
 park/unpark, rehearsal) is held bit for bit between its two bank layouts
-at the CL demo's widths.
+at the CL demo's widths, and the serving layer at chameleon-tcn's width:
+the ServingPlane through a crash and a drain, spill/restore, and
+TCNStreamServer, each bit for bit against a synchronous control.
 Marked ``cuda``; every test skips when no card is present.  This file
 imports no JAX, so it runs on a machine that has only PyTorch:
 
@@ -435,3 +437,183 @@ def test_paged_bank_equals_dense_on_card(dev, max_ways):
     blobs = [svc.export_tenant(0) for svc in svcs]
     for key in ("s_sums", "counts"):
         assert np.array_equal(blobs[0][key], blobs[1][key])
+
+
+# ---------------------------------------------------------------------------
+# serving on the card: the plane, spill/restore, TCNStreamServer
+# ---------------------------------------------------------------------------
+
+def _serving(dev, seed=11):
+    """chameleon-tcn at full width with random weights (FC too), and a
+    factory of paged services of one geometry."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_tcn_bundle
+
+    cfg = get_config("chameleon-tcn")
+    bundle = build_tcn_bundle(cfg, dev)
+    g = torch.Generator().manual_seed(seed)
+    params = bundle.init(g)
+    params["fc"]["w"] = torch.randn(params["fc"]["w"].shape,
+                                    generator=g).to(dev) * 0.2
+
+    def mk(**kw):
+        return StreamSessionService(
+            bundle, params, n_slots=8, max_tenants=8, max_ways=16,
+            paged_bank=True, bank_block_ways=8, rehearsal_cap=4,
+            max_sessions=32, **kw)
+
+    return cfg, bundle, params, mk
+
+
+def _chunks(rng, n_rounds):
+    return [rng.normal(size=(int(rng.integers(1, 40)), 1)).astype(np.float32)
+            for _ in range(n_rounds)]
+
+
+def _same(a, b):
+    for key in ("emb", "logits", "tenant_logits"):
+        assert (a[key] is None) == (b[key] is None), key
+        if a[key] is not None:
+            assert np.array_equal(a[key], b[key]), key
+    assert a["pred"] == b["pred"]
+
+
+def test_plane_crash_and_drain_bit_identical_on_card(dev):
+    """16 sessions (two tenants with two raw-shot ways each, the rest
+    tenantless) over two workers, worker 0 crashing once; a drain of
+    worker 1 between the two halves.  No session is lost and every result
+    equals a synchronous control on one service of the same geometry."""
+    import asyncio
+
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.serving import (FaultInjector, FaultPlan, Rejected,
+                                     ServingPlane)
+
+    _, _, _, mk = _serving(dev)
+    rng = np.random.default_rng(0)
+    N, R = 16, 6
+    tenant = {i: (4 if i % 4 == 0 else 1 if i % 4 == 1 else None)
+              for i in range(N)}  # tenants 4 and 1 hash to workers 0 and 1
+    shots = {t: rng.normal(size=(2, 3, 64, 1)).astype(np.float32)
+             for t in (4, 1)}
+    data = {i: _chunks(rng, R) for i in range(N)}
+
+    async def persist(op):
+        for attempt in range(500):
+            try:
+                return await op()
+            except Rejected as e:
+                assert e.retryable
+                await asyncio.sleep(0.001)
+        raise AssertionError("retry budget spent")
+
+    async def main():
+        inj = FaultInjector(mk(), FaultPlan.parse("crash@9"), factory=mk)
+        plane = ServingPlane([inj, mk()], metrics=MetricsRegistry(),
+                             checkpoint_every=1)
+        async with plane:
+            psids = {}
+            for i in range(N):
+                kw = {} if tenant[i] is None else {"tenant": tenant[i]}
+                psids[i] = await persist(lambda kw=kw: plane.open_session(**kw))
+            for t in (4, 1):
+                first = next(i for i in range(N) if tenant[i] == t)
+                for s in shots[t]:
+                    await persist(lambda s=s: plane.enroll(psids[first], s))
+            outs = {i: [] for i in range(N)}
+
+            async def client(i, rounds):
+                for r in rounds:
+                    outs[i].append(await persist(
+                        lambda r=r: plane.push(psids[i], data[i][r])))
+
+            await asyncio.gather(*(client(i, range(R // 2)) for i in range(N)))
+            summary = await plane.drain(1)
+            plane.undrain(1)
+            await asyncio.gather(*(client(i, range(R // 2, R))
+                                   for i in range(N)))
+            return outs, plane.stats(), plane.metrics(), inj, summary
+
+    outs, stats, m, inj, summary = asyncio.run(main())
+    assert stats["lost_sessions"] == 0 and inj.crashes == 1
+    assert m["plane_crashes_total"][0]["value"] == 1
+    assert m["plane_recoveries_total"][0]["value"] == 1
+    assert summary["moved_sessions"] > 0
+    ctl = mk()
+    sids = {i: ctl.open_session(**({} if tenant[i] is None
+                                   else {"tenant": tenant[i]}))
+            for i in range(N)}
+    for t in (4, 1):
+        first = next(i for i in range(N) if tenant[i] == t)
+        for s in shots[t]:
+            ctl.enroll_shots(sids[first], s)
+    for i in range(N):
+        for r in range(R):
+            _same(outs[i][r], ctl.push({sids[i]: data[i][r]})[sids[i]])
+    # a rebuilt worker bakes the same parameters as the first one
+    fresh = mk()
+    for a, b in zip(_leaves(inj.service._fused_params),
+                    _leaves(fresh._fused_params)):
+        assert torch.equal(a, b)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def test_spill_restore_bit_identical_on_card(dev, tmp_path):
+    _, _, _, mk = _serving(dev)
+    rng = np.random.default_rng(1)
+    shots = rng.normal(size=(3, 64, 1)).astype(np.float32)
+    x1 = rng.normal(size=(4, 50, 1)).astype(np.float32)
+    x2 = rng.normal(size=(4, 64, 1)).astype(np.float32)
+    runs = []
+    for svc in (mk(), mk()):
+        sids = [svc.open_session(tenant=i % 2) for i in range(4)]
+        svc.enroll_shots(sids[0], shots)
+        svc.push({s: x1[i] for i, s in enumerate(sids)})
+        runs.append((svc, sids))
+    (ctl, csids), (src, ssids) = runs
+    path = str(tmp_path / "spill.npz")
+    src.spill_parking(path, include_bound=True)
+    fresh = mk()
+    assert fresh.restore_parking(path) == ssids
+    assert fresh.bankpool.pool.n_live == 0
+    want = ctl.push({s: x2[i] for i, s in enumerate(csids)})
+    got = fresh.push({s: x2[i] for i, s in enumerate(ssids)})
+    torch.cuda.synchronize()
+    for c, s in zip(csids, ssids):
+        _same(got[s], want[c])
+
+
+def test_tcn_stream_server_equals_bare_service_on_card(dev):
+    import warnings
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_tcn_bundle
+    from repro_torch.serving import TCNStreamServer
+
+    cfg = get_config("chameleon-tcn-kws")
+    bundle = build_tcn_bundle(cfg, dev)
+    params = bundle.init(torch.Generator().manual_seed(4))
+    x = np.random.default_rng(2).normal(
+        size=(8, 126, cfg.tcn_in_channels)).astype(np.float32)
+    srv = TCNStreamServer(bundle, params, None, n_streams=8)
+    shim = TCNStreamServer(bundle, params, None, n_streams=8)
+    bare = StreamSessionService(bundle, params, n_slots=8, max_tenants=1,
+                                max_ways=1)
+    bsids = [bare.open_session() for _ in range(8)]
+    for a in range(0, 126, 63):
+        got = srv.push({s: x[i, a:a + 63] for i, s in enumerate(srv.sids)})
+        want = bare.push({s: x[i, a:a + 63] for i, s in enumerate(bsids)})
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            embs, logits = shim.push_chunk(x[:, a:a + 63])
+        for i, (s, b) in enumerate(zip(srv.sids, bsids)):
+            _same(got[s], want[b])
+            assert np.array_equal(embs[i], got[s]["emb"])
+            assert np.array_equal(logits[i], got[s]["logits"])

@@ -1,7 +1,8 @@
 """The port stands alone: no file under src/repro_torch/ nor chip_smoke.py
-imports jax or the JAX package (checked on the source, so a lazy import
-inside a function counts too), and an entry point left on its default
-device raises when there is no card instead of falling back to the CPU."""
+imports jax, ml_dtypes or the JAX package (checked on the source, so a
+lazy import inside a function counts too), and an entry point left on its
+default device raises when there is no card instead of falling back to
+the CPU."""
 
 import ast
 from pathlib import Path
@@ -13,7 +14,7 @@ torch = pytest.importorskip("torch")
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "repro")
 
 
 def _imported_roots(path: Path):
@@ -35,7 +36,9 @@ def test_port_files_found():
     names = {p.name for p in PORT_FILES}
     assert {"chip_smoke.py", "tcn_block.py", "proto_extract.py",
             "service.py", "convert.py", "log2_matmul.py", "dilated_conv.py",
-            "ops.py", "paging.py", "bankpool.py", "rehearsal.py"} <= names
+            "ops.py", "paging.py", "bankpool.py", "rehearsal.py",
+            "plane.py", "faults.py", "engine.py", "store.py", "metrics.py",
+            "trace.py", "device.py", "runtime.py"} <= names
 
 
 @pytest.mark.parametrize("module", ["repro_torch.kernels.dispatch",
@@ -43,7 +46,10 @@ def test_port_files_found():
                                     "repro_torch.configs",
                                     "repro_torch.sessions.paging",
                                     "repro_torch.sessions.bankpool",
-                                    "repro_torch.sessions.rehearsal"])
+                                    "repro_torch.sessions.rehearsal",
+                                    "repro_torch.obs",
+                                    "repro_torch.checkpoint.store",
+                                    "repro_torch.serving"])
 def test_module_imports_first(module):
     """Each of these imports in a fresh interpreter before anything else of
     the port (the configs import the models, which import dispatch; the
