@@ -22,6 +22,22 @@ non-zero):
            ceil(784/max_chunk_len) tcn_chunk launches) bit for bit equal to
            t_chunk=16;
   fsl      5-way 1-shot and 5-shot episodes through protonet.adapt;
+  train    meta-trains chameleon-tcn at full width on 28x28 glyphs (784-step
+           sequences): 300 prototypical episodes (5-way 3-shot 3-query,
+           AdamW 2e-3, the train-mode forward through autograd), the mean
+           loss of the last 50 below the first 50's, then 40 QAT episodes;
+           one step twice on the same inputs bit for bit, its time,
+           launches and idle share; the Trainer (grad_accum=2, int8_ef)
+           killed and resumed from its checkpoint, bit for bit equal to the
+           whole run; then the Table I protocol on unseen classes (5-way 1-
+           and 5-shot, fp32 and log2) through bake_stream_params +
+           make_fused_forward (strip entry) and protonet.adapt
+           (proto_extract), each episode held against the plain eval
+           forward, support_sums + pn_fc_from_sums and the plain path's
+           argmax (disagreements only at near ties), accuracies reported;
+           and the trained log2 embedder served to 64 glyph streams:
+           chunk-size invariance, park/resume, and every stream's last step
+           against the full-sequence fused forward;
   cl       the paper's continual-learning demo on two chameleon-tcn services
            (paged and dense tenant banks, rehearsal on): tenant A learns 250
            ways x 10 shots of 784-sample clips one way at a time (every 10th
@@ -309,6 +325,17 @@ def same_grid(a, b) -> bool:
 def clone_grid(g):
     return {"t": g["t"].clone(), "blocks": {
         n: {r: v.clone() for r, v in d.items()} for n, d in g["blocks"].items()}}
+
+
+def tree_equal(a, b) -> bool:
+    """Two trees of tensors (dicts, NamedTuples, lists) equal leaf by
+    leaf, bit for bit."""
+    import torch
+    from repro_torch.utils.trees import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y)
+                                      for x, y in zip(la, lb))
 
 
 class counting:
@@ -1568,8 +1595,7 @@ def phase_plane(cfg, dev, seed: int = 11, stream_len: int = STREAM_LEN,
                                      "synchronous control")
             if i < PLANE_SESSIONS - PLANE_KEEP:
                 ctl.close(csid[i])
-    if not all(torch.equal(a, b) for a, b in zip(
-            leaves(inj.service._fused_params), leaves(ctl._fused_params))):
+    if not tree_equal(inj.service._fused_params, ctl._fused_params):
         raise AssertionError("plane: a rebuilt worker baked other params")
     ops = len(latencies)
     lat = np.asarray(latencies) * 1e3
@@ -1609,14 +1635,6 @@ def phase_plane(cfg, dev, seed: int = 11, stream_len: int = STREAM_LEN,
             "control": ctl, "control_sids": keep, "audio": audio,
             "stream_len": stream_len, "make": lambda: plane_service(
                 bundle, params, bn)}
-
-
-def leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from leaves(v)
-    else:
-        yield tree
 
 
 def phase_spill(plane: dict):
@@ -2011,7 +2029,7 @@ def phase_ops_main(dev, audio_cfg, seed: int = 5):
     for out, args in zip(outs, work):
         allclose("ops log2_matmul workload", out, log2_matmul_ref(*args),
                  MATMUL_RTOL, MATMUL_ATOL)
-    de, dl = tcn_forward(params, bn, audio_cfg, clips)
+    de, dl, _ = tcn_forward(params, bn, audio_cfg, clips)
     err = max(scaled_close("ops conv forward emb", emb, de),
               scaled_close("ops conv forward logits", logits, dl))
     log(f"ops main path: {len(work)} log2_matmul workloads (both paths) and the "
@@ -2253,7 +2271,7 @@ def phase_audio(cfg, dev, seed: int = 6):
     clips = torch.from_numpy(audio[:AUDIO_B]).to(dev)
     for quantize in (False, True):
         e_c, l_c, evals = cone_eval(params, bn, cfg, clips, quantize=quantize)
-        e_d, l_d = tcn_forward(params, bn, cfg, clips, quantize=quantize)
+        e_d, l_d, _ = tcn_forward(params, bn, cfg, clips, quantize=quantize)
         sync(dev)
         err = max(scaled_close(f"cone_eval quantize={quantize} emb", e_c, e_d),
                   scaled_close(f"cone_eval quantize={quantize} logits", l_c,
@@ -2277,6 +2295,359 @@ def phase_audio(cfg, dev, seed: int = 6):
         f"{stream_state_bytes(cfg) / 1024:.1f} kB per stream at u4, "
         f"{stream_state_bytes(cfg, 4) / 2**20:.2f} MiB at fp32")
     return result
+
+
+# ---------------------------------------------------------------------------
+# phase: train (meta-train chameleon-tcn, QAT, Trainer resume, Table I, serve)
+# ---------------------------------------------------------------------------
+
+# examples/fsl_episodic.py's meta-training at the full chameleon-tcn width
+# on 28x28 glyphs (784-step sequences): 5-way 3-shot 3-query episodes (30
+# sequences a step), AdamW 2e-3, then a QAT fine-tune; 100 glyph classes
+# split 70 / 30 (the 30 unseen classes evaluate and serve)
+TRAIN_CLASSES, TRAIN_EPISODES, QAT_EPISODES = 100, 300, 40
+TRAIN_SHOTS, TRAIN_QUERY, LOSS_WINDOW = 3, 3, 50
+# Trainer steps of the bundle's loss_fn (grad_accum=2, int8_ef): killed
+# after TRAINER_KILL steps and resumed; TRAINER_SHOTS glyphs of each of
+# N_WAYS training classes a step
+TRAINER_STEPS, TRAINER_KILL, TRAINER_SHOTS = 6, 3, 4
+EVAL_EPISODES, EVAL_QUERY = 10, 4
+DATA_WORKERS = 6  # processes rendering glyph episodes (numpy, on the host)
+GLYPH = 28
+
+
+class Prefetched:
+    """Episodes rendered ahead in worker processes, behind the
+    ``EpisodicSampler.episode`` call; ``get()`` yields them in order."""
+
+    def __init__(self, sampler, eps, n_ways, k, q, workers=DATA_WORKERS):
+        import functools
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+
+        self.eps, self.shape = list(eps), (n_ways, k, q)
+        fn = functools.partial(sampler.episode, n_ways=n_ways, k_shots=k,
+                               n_query=q)
+        self.pool = ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn"))
+        self.futures = [self.pool.submit(fn, ep) for ep in self.eps]
+
+    def get(self):
+        for f in self.futures:
+            yield f.result()
+
+    def episode(self, ep, n_ways, k_shots, n_query):
+        if (n_ways, k_shots, n_query) != self.shape:
+            raise KeyError((n_ways, k_shots, n_query))
+        return self.futures[self.eps.index(ep)].result()
+
+    def close(self):
+        self.pool.shutdown(cancel_futures=True)
+
+
+def plain_fused_forward(cfg, fused, x, quantize: bool):
+    """``make_fused_forward``'s embedding with every block through the
+    strip entry's plain version (``kernels/ref.tcn_block_fused``) on the
+    tensors' own device."""
+    import torch
+    from repro_torch.kernels.ref import expand_weight, tcn_block_fused
+    from repro_torch.quant.log2 import fake_quant_act_u4
+
+    k, h = cfg.tcn_kernel, x
+    for i, c in enumerate(cfg.tcn_channels):
+        n = (k - 1) * 2 ** i
+        h, _ = tcn_block_fused(
+            torch.nn.functional.pad(h, (0, 0, n, 0)).contiguous(),
+            h.new_zeros((x.shape[0], n, c)), fused["blocks"][f"b{i}"],
+            dilation=2 ** i, k=k, act_scale=cfg.act_scale, quantize=quantize)
+    emb = torch.relu(h[:, -1, :] @ expand_weight(fused["head_w"])
+                     + fused["head_b"])
+    return fake_quant_act_u4(emb, cfg.act_scale) if quantize else emb
+
+
+def phase_train(cfg, dev, seed: int = 13, episodes: int = TRAIN_EPISODES,
+                qat: int = QAT_EPISODES, glyph: int = GLYPH,
+                n_sessions: int = N_SLOTS):
+    """Meta-train the FSL embedder, fine-tune it with QAT, run the
+    Trainer through a kill and a resume, bake the trained embedder and
+    hold it on the Table I protocol (unseen classes, 5-way 1- and 5-shot,
+    fp32 and log2) and in a service against the plain versions.  Returns
+    the main path's launches and the measured numbers."""
+    import functools
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch.core.protonet import (
+        pn_fc_from_sums,
+        pn_fc_from_sums_log2,
+        pn_logits,
+        support_sums,
+    )
+    from repro_torch.data import EpisodicSampler, GlyphClasses, split_classes
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.proto_extract import proto_extract
+    from repro_torch.kernels.tcn_block import tcn_block, tcn_chunk
+    from repro_torch.models import build_tcn_bundle
+    from repro_torch.models.tcn import (
+        bake_stream_params,
+        make_fused_forward,
+        tcn_empty_state,
+        tcn_forward,
+    )
+    from repro_torch.sessions import StreamSessionService
+    from repro_torch.training import TrainConfig, Trainer
+    from repro_torch.training.episodic import fsl_episode, make_episode_step
+    from repro_torch.training.optim import adamw
+
+    out = {}
+    bundle = build_tcn_bundle(cfg, dev)
+    params = bundle.init(torch.Generator().manual_seed(seed))
+    state = tcn_empty_state(cfg, dev)
+    ds = GlyphClasses(TRAIN_CLASSES, seed=seed, size=glyph)
+    train_cls, test_cls = split_classes(TRAIN_CLASSES, 0.7, seed=seed)
+    opt = adamw(2e-3)
+    opt_state = opt[0](params)
+    step = {q: make_episode_step(cfg, opt, n_ways=N_WAYS, quantize=q)
+            for q in (False, True)}
+    eval_sampler = EpisodicSampler(ds, test_cls, seed=seed + 99)
+    data = Prefetched(EpisodicSampler(ds, train_cls, seed=seed + 1),
+                      range(episodes + qat), N_WAYS, TRAIN_SHOTS, TRAIN_QUERY)
+    evals = {k: Prefetched(eval_sampler, range(EVAL_EPISODES), N_WAYS, k,
+                           EVAL_QUERY, workers=2) for k in (1, K_SHOTS)}
+    try:
+        # ---- meta-training, then the QAT fine-tune ----
+        losses, t0 = [], time.perf_counter()
+        for ep, arrays in enumerate(data.get()):
+            batch = [torch.from_numpy(a).to(dev) for a in arrays]
+            if ep == episodes:
+                fp32 = (params, state)  # the fp32 embedder, before QAT
+                out["train_s"] = time.perf_counter() - t0
+                t0 = time.perf_counter()
+            params, state, opt_state, loss, _ = step[ep >= episodes](
+                params, state, opt_state, *batch)
+            losses.append(loss)
+        out["qat_s"] = time.perf_counter() - t0
+        losses = torch.stack(losses).cpu().numpy()
+        if not np.isfinite(losses).all():
+            raise AssertionError("train: a non-finite episode loss")
+        first = float(losses[:LOSS_WINDOW].mean())
+        last = float(losses[episodes - LOSS_WINDOW:episodes].mean())
+        q_first, q_last = float(losses[episodes]), float(losses[-1])
+        if not last < first:
+            raise AssertionError(f"train: the mean loss of the last "
+                                 f"{LOSS_WINDOW} episodes ({last:.4f}) is not "
+                                 f"below the first {LOSS_WINDOW}'s "
+                                 f"({first:.4f})")
+        log(f"train {cfg.name}: {episodes} episodes (5-way {TRAIN_SHOTS}-shot"
+            f" {TRAIN_QUERY}-query, {glyph}x{glyph} glyphs, {glyph ** 2} "
+            f"steps) in {out['train_s']:.1f} s, mean loss first "
+            f"{LOSS_WINDOW} {first:.4f} -> last {LOSS_WINDOW} {last:.4f}; "
+            f"QAT {qat} episodes in {out['qat_s']:.1f} s, loss {q_first:.4f}"
+            f" -> {q_last:.4f}")
+        out.update(loss_first=first, loss_last=last)
+
+        # ---- one step: repeats bit for bit; its time, launches, idle ----
+        fp_params, fp_state = fp32
+        fp_opt = opt[0](fp_params)
+        batch = [torch.from_numpy(a).to(dev) for a in data.episode(
+            0, N_WAYS, TRAIN_SHOTS, TRAIN_QUERY)]
+        one = step[False](fp_params, fp_state, fp_opt, *batch)
+        two = step[False](fp_params, fp_state, fp_opt, *batch)
+        if not tree_equal(list(one), list(two)):
+            raise AssertionError("train: one episode step twice on the same "
+                                 "inputs gave different bits")
+        run = lambda: step[False](fp_params, fp_state, fp_opt, *batch)
+        out["step_ms"] = time_ms(run, dev, n=10, warmup=2)
+        log(f"timing train step ({N_WAYS * (TRAIN_SHOTS + TRAIN_QUERY)} x "
+            f"{glyph ** 2} samples, forward + backward + AdamW): "
+            f"ms={out['step_ms']:.3f} (median of 10, CUDA events); the same "
+            "inputs twice give the same bits")
+        if dev.type == "cuda":
+            out["step_profile"] = profile_tick(run, ticks=5,
+                                               name="train step")
+
+        # ---- Trainer: grad_accum=2 and int8_ef, killed and resumed ----
+        @functools.lru_cache(maxsize=None)
+        def trainer_batch(i):
+            x = np.concatenate([ds.sample(int(c), TRAINER_SHOTS, seed=5000 + i)
+                                for c in train_cls[:N_WAYS]])
+            y = np.repeat(np.arange(N_WAYS), TRAINER_SHOTS).astype(np.int32)
+            perm = np.random.default_rng(i).permutation(len(y))
+            return x[perm].reshape(2, -1, *x.shape[1:]), y[perm].reshape(2, -1)
+
+        def trainer(d):
+            return Trainer(bundle.loss_fn, fp_params, TrainConfig(
+                steps=TRAINER_STEPS, grad_accum=2, grad_compression="int8_ef",
+                ckpt_dir=str(d), ckpt_every=2, log_every=1),
+                lambda i: {k: torch.from_numpy(v).to(dev) for k, v in zip(
+                    ("x", "labels"), trainer_batch(i))},
+                optimizer=adamw(1e-3), model_state=fp_state)
+
+        ckpt = ROOT / "build" / "train_ckpt"
+        shutil.rmtree(ckpt, ignore_errors=True)
+        whole, hist = trainer(ckpt / "whole").run()
+        trainer(ckpt / "killed").run(steps=TRAINER_KILL)
+        resumed = trainer(ckpt / "killed")
+        at = resumed.maybe_resume()
+        if at != TRAINER_KILL:
+            raise AssertionError(f"train: resumed at step {at}, expected "
+                                 f"{TRAINER_KILL}")
+        again, _ = resumed.run()
+        if not tree_equal(whole, again):
+            raise AssertionError("train: the killed and resumed Trainer's "
+                                 "state differs from the whole run's")
+        shutil.rmtree(ckpt, ignore_errors=True)
+        log(f"train Trainer (grad_accum=2, int8_ef): {TRAINER_STEPS} steps, "
+            f"loss {hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}; killed "
+            f"after {TRAINER_KILL}, resumed from its checkpoint: params, "
+            "optimizer, BN and error-feedback state bit for bit equal")
+
+        # ---- Table I on unseen classes through the kernels ----
+        tcn_block.launches = tcn_chunk.launches = proto_extract.launches = 0
+        acc, checks = {}, []
+        for log2, (p, st) in ((False, fp32), (True, (params, state))):
+            scan_p, scan_bn, fused = bake_stream_params(p, st, cfg,
+                                                        quantize=log2)
+            fwd = make_fused_forward(cfg, quantize=log2, device=dev)
+            for k in (1, K_SHOTS):
+                accs = []
+                for e in range(EVAL_EPISODES):
+                    a, t = fsl_episode(lambda x: fwd(fused, x)[0], evals[k],
+                                       e, N_WAYS, k, n_query=EVAL_QUERY,
+                                       log2=log2, device=dev)
+                    accs.append(a)
+                    checks.append((log2, k, p, st, t))
+                acc[(log2, k)] = float(np.mean(accs))
+        out["fsl_launches"] = (tcn_block.launches, proto_extract.launches)
+        if 0 in out["fsl_launches"]:
+            raise AssertionError("train: a kernel was not launched in the "
+                                 f"evaluation (tcn_block, proto_extract) = "
+                                 f"{out['fsl_launches']}")
+        err = {"emb": 0.0, "raw": 0.0, "wb": 0.0}
+        agree = total = 0
+        qat_equal, qat_agree = [], []
+        for log2, k, p, st, t in checks:
+            tag = f"train Table I {'log2' if log2 else 'fp32'} {k}-shot"
+            scan_p, scan_bn, fused = bake_stream_params(p, st, cfg,
+                                                        quantize=log2)
+            # the fused forward's plain version on the same inputs (the
+            # kernels' summation order: the existing tolerances)
+            plain = {s: plain_fused_forward(cfg, fused, t[s + "x"], log2)
+                     for s in ("s", "q")}
+            for s in ("s", "q"):
+                err["emb"] = max(err["emb"], compare(
+                    f"{tag} emb_{s} vs the fused forward's plain version",
+                    t[f"emb_{s}"], plain[s], log2))
+            extract = pn_fc_from_sums_log2 if log2 else pn_fc_from_sums
+            if not log2:
+                # and the eval forward on the raw trained params: BN
+                # folding reassociates (the repo's folded-vs-raw tolerance)
+                for s in ("s", "q"):
+                    err["raw"] = max(err["raw"], scaled_close(
+                        f"{tag} emb_{s} vs the eval forward on the raw "
+                        "params", t[f"emb_{s}"],
+                        tcn_forward(p, st, cfg, t[s + "x"])[0]))
+            else:
+                # the QAT eval forward on the baked params sums in another
+                # order, and a u4 rounding flip propagates: its agreement
+                # is reported, not gated
+                q = {s: tcn_forward(scan_p, scan_bn, cfg, t[s + "x"],
+                                    quantize=True)[0] for s in ("s", "q")}
+                qat_equal += [(q[s] == t[f"emb_{s}"]).float().mean()
+                              for s in ("s", "q")]
+                wq, bq = extract(support_sums(q["s"], t["sy"], N_WAYS), k)[:2]
+                qat_agree.append((pn_logits(q["q"], wq, bq).argmax(-1)
+                                  == t["pred"]).float().mean())
+            sums = support_sums(t["emb_s"], t["sy"], N_WAYS)
+            ws, bs = extract(sums, k)[:2]
+            err["wb"] = max(err["wb"], allclose(tag + " W", t["w"], ws, 1e-5,
+                                                1e-6),
+                            allclose(tag + " b", t["b"], bs, 1e-5, 1e-6))
+            # the plain path end to end: plain embeddings, plain extraction
+            wp, bp = extract(support_sums(plain["s"], t["sy"], N_WAYS), k)[:2]
+            logits = pn_logits(plain["q"], wp, bp)
+            pred = logits.argmax(-1)
+            for r in torch.nonzero(pred != t["pred"]).flatten().tolist():
+                la, lb = logits[r, t["pred"][r]], logits[r, pred[r]]
+                if abs(la - lb) > 1e-4 * (abs(la) + abs(lb)):
+                    raise AssertionError(f"{tag}: query {r} classified "
+                                         f"{int(t['pred'][r])} by the kernels"
+                                         f", {int(pred[r])} by the plain "
+                                         "path, not a near tie")
+            agree += int((pred == t["pred"]).sum())
+            total += len(pred)
+        out["acc"] = acc
+        out["emb_max"] = max(float(t["emb_s"].abs().max())
+                             for log2, *_, t in checks if not log2)
+        log(f"train Table I (unseen classes, {EVAL_EPISODES} episodes of "
+            f"5-way k-shot, {EVAL_QUERY} queries a way): accuracy fp32 "
+            f"1-shot {acc[(False, 1)]:.4f} 5-shot {acc[(False, K_SHOTS)]:.4f}"
+            f", log2 (QAT, Eq. 8) 1-shot {acc[(True, 1)]:.4f} 5-shot "
+            f"{acc[(True, K_SHOTS)]:.4f}; fused forward vs its plain version "
+            f"max abs err {err['emb']:.3g}, fp32 vs "
+            f"the eval forward on the raw params {err['raw']:.3g}, log2 vs "
+            f"the QAT eval forward on the baked params (reported) "
+            f"{float(torch.stack(qat_equal).mean()):.4f} of the embeddings "
+            f"bit-equal and argmax agreement "
+            f"{float(torch.stack(qat_agree).mean()):.4f}, adapt W/b vs support_sums"
+            f" + pn_fc_from_sums max abs err {err['wb']:.3g}, argmax agreement"
+            f" {agree}/{total} (the rest near ties); tcn_block launches="
+            f"{out['fsl_launches'][0]} proto_extract launches="
+            f"{out['fsl_launches'][1]}; trained fp32 |emb| up to "
+            f"{out['emb_max']:.3g}")
+
+        # ---- serve the trained quantized embedder ----
+        rng = np.random.default_rng(seed)
+        audio = np.concatenate([ds.sample(int(test_cls[i % len(test_cls)]),
+                                          1, seed=9000 + i)
+                                for i in range(n_sessions)]).astype(np.float32)
+        shots = np.stack([ds.sample(int(test_cls[j]), K_SHOTS, seed=9500 + j)
+                          for j in range(N_WAYS)]).astype(np.float32)
+        schedule = make_schedule(rng, n_sessions, glyph ** 2)
+
+        def service(t_chunk):
+            return StreamSessionService(
+                bundle, params, state, n_slots=n_sessions,
+                max_tenants=N_TENANTS, max_ways=8, t_chunk=t_chunk,
+                quantize=True, fused=True)
+
+        svc = service(T_CHUNK)
+        tcn_block.launches = tcn_chunk.launches = proto_extract.launches = 0
+        with counting(ref, PLAIN_CHUNK) as plain_calls:
+            main, _ = drive(svc, audio, schedule, shots)
+        chunk, strip = check_drive_launches("train serve", svc, cfg,
+                                            plain_calls.calls)
+        out["serve_launches"] = chunk + strip
+        if not same_outputs(main, drive(service(1), audio, schedule,
+                                        shots)[0]):
+            raise AssertionError(f"train serve: t_chunk {T_CHUNK} and 1 "
+                                 "differ")
+        parked_svc = service(T_CHUNK)
+        if not same_outputs(main, drive(parked_svc, audio, schedule, shots,
+                                        park_every=4)[0]):
+            raise AssertionError("train serve: park/resume changed the "
+                                 "outputs")
+        _, _, fused_q = bake_stream_params(params, state, cfg, quantize=True)
+        e_full, _ = make_fused_forward(cfg, quantize=True, device=dev)(
+            fused_q, torch.from_numpy(audio).to(dev))
+        last = torch.from_numpy(np.stack([main[s][0][-1]
+                                          for s in range(n_sessions)]))
+        serr = compare("train serve: each stream's last step vs the "
+                       "full-sequence fused forward", last, e_full.cpu(), True)
+        log(f"train serve (trained log2 embedder, quantize=True): "
+            f"{n_sessions} streams of {glyph ** 2}-step unseen-class glyphs,"
+            f" {svc.dispatches} ticks, tcn_chunk launches={chunk}, strip "
+            f"launches={strip}; chunk-size invariance (t_chunk {T_CHUNK} vs "
+            f"1) and park/resume ({parked_svc.evictions} evictions) bit-exact;"
+            f" every stream's last step equals the full-sequence fused "
+            f"forward (max abs err {serr:.3g}, |emb| up to "
+            f"{e_full.abs().max().item():.3g})")
+    finally:
+        data.close()
+        for p in evals.values():
+            p.close()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2382,6 +2753,7 @@ def main() -> int:
     tb_time, pe_time = phase("timings", phase_timings, cfg, dev)
     serve = phase("serve", phase_serve, cfg, dev)
     fsl = phase("fsl", phase_fsl, cfg, dev)
+    train = phase("train", phase_train, cfg, dev)
     cl = phase("cl", phase_cl, cfg, dev)
     plane = phase("plane", phase_plane, cfg, dev)
     phase("spill", phase_spill, plane)
@@ -2411,7 +2783,8 @@ def main() -> int:
          "replaces": "src/repro/kernels/tcn_block.py:166",
          "launches": serve["launches"] + sum(c[1] for c in fsl.values())
          + cl["launches"] + plane["launches"] + kws["launches"]
-         + kws_server["launches"] + audio["launches"],
+         + kws_server["launches"] + audio["launches"]
+         + train["fsl_launches"][0] + train["serve_launches"],
          "max_abs_err": max(errs["tcn_block"], audio_errs["tcn_block"],
                             kws_errs["tcn_block"]),
          "bound_peak": PEAK_NAMES[PEAK_FP32_FLOPS], **tb_time},
@@ -2419,7 +2792,7 @@ def main() -> int:
          "source": "src/repro_torch/csrc/proto_extract.cu",
          "replaces": "src/repro/kernels/proto_extract.py:31",
          "launches": sum(c[0] for c in fsl.values())
-         + audio["proto_launches"],
+         + audio["proto_launches"] + train["fsl_launches"][1],
          "max_abs_err": errs["proto_extract"],
          "bound_peak": PEAK_NAMES[PEAK_FP32_FLOPS], **pe_time,
          "launch_floor_ms": floor_ms},

@@ -26,9 +26,17 @@ from repro_torch.quant.log2 import compute_scale, dequantize_log2, quantize_log2
 
 def support_sums(embeddings: torch.Tensor, labels: torch.Tensor, n_ways: int):
     """s^j = sum over the k shots of way j.  embeddings (N*k, V); labels
-    (N*k,).  Returns (n_ways, V)."""
-    out = embeddings.new_zeros((n_ways, embeddings.shape[1]))
-    return out.index_add_(0, labels.long(), embeddings)
+    (N*k,).  Returns (n_ways, V).
+
+    Summed in an order fixed by the shapes alone, on every device: a
+    one-hot mask picks each way's rows (the others add exact zeros) and
+    ``sum_last`` sums over the rows.  ``index_add_`` on a CUDA tensor adds
+    with atomics once there are more than 16 rows, in an order that
+    changes from call to call (25 and 30 rows gave other bits within 200
+    calls on an H100), and a training step must repeat bit for bit."""
+    ways = torch.arange(n_ways, device=embeddings.device)
+    onehot = (labels.long()[None, :] == ways[:, None]).to(embeddings.dtype)
+    return sum_last(onehot[:, None, :] * embeddings.T[None])
 
 
 def pn_fc_from_sums(s: torch.Tensor, k: int):

@@ -1,10 +1,14 @@
-"""Temporal Convolutional Network — the paper's embedder (§III-B, Fig. 7),
-inference half.
+"""Temporal Convolutional Network — the paper's embedder (§III-B, Fig. 7).
 
-The port of ``repro/models/tcn.py``: param defs and init, the eval-mode
-forward (with or without the QAT fake-quant), BN folding and the
+The port of ``repro/models/tcn.py``: param defs and init, the forward in
+train mode (batch-norm on batch statistics, running stats carried in a
+state tree with momentum 0.9) or eval mode (running stats), either with
+the QAT fake-quant (log2 weights through the straight-through estimator,
+u4 activations at the fixed ``act_scale``), BN folding and the
 session-open bake behind the fused kernel path, and the fused batch
-forward.  Training (train-mode BN, QAT updates) waits for a later slice.
+forward.  Training runs through autograd over ``tcn_forward``; its convs
+are ``kernels/ref.dilated_conv_ref`` (tap-shifted matmuls, no cuDNN), as
+the eval forward's are.
 
 Params are nested dicts of tensors in the reference's layout: conv weights
 (K, Cin, Cout), activations (B, T, C).
@@ -111,35 +115,61 @@ def _bn(x, scale, bias, mean, var):
     return (x - mean) * inv * scale + bias
 
 
-def tcn_forward(params, state, cfg: ArchConfig, x, *, quantize: bool = False):
-    """Eval-mode forward.  x: (B, T, C_in) -> (embedding (B, V), logits).
+def _bn_train(x, scale, bias, run_mean, run_var, momentum=0.9):
+    """BN on the batch statistics over (B, T) (biased variance, as
+    ``jnp.var``), and the updated running stats, detached: they are
+    state, not a function of the params to differentiate."""
+    mean = x.mean(dim=(0, 1))
+    var = x.var(dim=(0, 1), correction=0)
+    y = _bn(x, scale, bias, mean, var)
+    new_mean = momentum * run_mean + (1 - momentum) * mean
+    new_var = momentum * run_var + (1 - momentum) * var
+    return y, new_mean.detach(), new_var.detach()
 
-    BN uses the running stats in ``state``; quantize=True runs the QAT
-    fake-quant path (log2 weights, u4 activations at the fixed scale)."""
+
+def tcn_forward(params, state, cfg: ArchConfig, x, *, train: bool = False,
+                quantize: bool = False):
+    """x: (B, T, C_in) -> (embedding (B, V), logits (B, n_classes),
+    new_state).
+
+    train=True normalizes on the batch statistics and returns the updated
+    running stats; train=False uses the running stats in ``state`` and
+    returns them unchanged.  quantize=True runs the QAT fake-quant path
+    (log2 weights, u4 activations at the fixed scale)."""
     qw = fake_quant_log2 if quantize else (lambda w: w)
     qa = (lambda a: fake_quant_act_u4(a, cfg.act_scale)) if quantize \
         else (lambda a: a)
+
+    def bn(y, p, st, ns, name):
+        if not train:
+            return _bn(y, p[name]["scale"], p[name]["bias"],
+                       st[f"{name}_mean"], st[f"{name}_var"])
+        y, ns[f"{name}_mean"], ns[f"{name}_var"] = _bn_train(
+            y, p[name]["scale"], p[name]["bias"], st[f"{name}_mean"],
+            st[f"{name}_var"])
+        return y
+
+    new_state = {}
     h = x
     for i in range(len(cfg.tcn_channels)):
         p = params["blocks"][f"b{i}"]
         st = state[f"b{i}"]
+        ns = dict(st)
         d = 2 ** i
         y = causal_conv1d(h, qw(p["conv1_w"]), p["conv1_b"], d)
-        y = _bn(y, p["bn1"]["scale"], p["bn1"]["bias"], st["bn1_mean"],
-                st["bn1_var"])
-        y = qa(torch.relu(y))
+        y = qa(torch.relu(bn(y, p, st, ns, "bn1")))
         y = causal_conv1d(y, qw(p["conv2_w"]), p["conv2_b"], d)
-        y = _bn(y, p["bn2"]["scale"], p["bn2"]["bias"], st["bn2_mean"],
-                st["bn2_var"])
+        y = bn(y, p, st, ns, "bn2")
         if "down_w" in p:
             res = causal_conv1d(h, qw(p["down_w"]), p["down_b"], 1)
         else:
             res = h
         h = qa(torch.relu(y + res))
+        new_state[f"b{i}"] = ns
     feat = h[:, -1, :]  # causal: last timestep sees the full receptive field
     emb = qa(torch.relu(feat @ qw(params["head_w"]) + params["head_b"]))
     logits = emb @ params["fc"]["w"] + params["fc"]["b"]
-    return emb, logits
+    return emb, logits, new_state
 
 
 def _copy_tree(node):

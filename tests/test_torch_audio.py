@@ -114,7 +114,7 @@ def test_cone_eval_matches_reference(quantize):
     assert n == jn and n < 50 * 6
     np.testing.assert_allclose(e.numpy(), np.asarray(je), rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(lg.numpy(), np.asarray(jl), rtol=RTOL, atol=ATOL)
-    de, dl = tcn_forward(p, bnt, cfg, torch.from_numpy(x), quantize=quantize)
+    de, dl, _ = tcn_forward(p, bnt, cfg, torch.from_numpy(x), quantize=quantize)
     np.testing.assert_allclose(e.numpy(), de.numpy(), rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(lg.numpy(), dl.numpy(), rtol=RTOL, atol=ATOL)
 
@@ -125,7 +125,7 @@ def test_cone_eval_audio_replica_matches_dense_forward():
     x = torch.from_numpy(np.random.default_rng(6).normal(
         size=(2, 300, 1)).astype(np.float32))
     e, lg, n = ts.cone_eval(p, bnt, cfg, x)
-    de, dl = tcn_forward(p, bnt, cfg, x)
+    de, dl, _ = tcn_forward(p, bnt, cfg, x)
     np.testing.assert_allclose(e.numpy(), de.numpy(), rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(lg.numpy(), dl.numpy(), rtol=RTOL, atol=ATOL)
     assert n < 300 * 2 * len(cfg.tcn_channels)

@@ -617,3 +617,164 @@ def test_tcn_stream_server_equals_bare_service_on_card(dev):
             _same(got[s], want[b])
             assert np.array_equal(embs[i], got[s]["emb"])
             assert np.array_equal(logits[i], got[s]["logits"])
+
+
+# ---------------------------------------------------------------------------
+# training on the card: determinism, resume, the trained embedder's kernels
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("rows", [15, 25, 30])
+def test_support_sums_repeats_bit_for_bit(dev, rows):
+    """support_sums at the train phase's shapes (5 ways, V=64): the same
+    inputs give the same bits every call."""
+    from repro_torch.core.protonet import support_sums
+
+    g = torch.Generator().manual_seed(rows)
+    emb = (torch.randn(rows, 64, generator=g) * 10).to(dev)
+    labels = torch.randperm(rows, generator=g).remainder(5).to(dev)
+    first = support_sums(emb, labels, 5)
+    for _ in range(200):
+        assert torch.equal(support_sums(emb, labels, 5), first)
+
+
+def _trained(dev, episodes=12, qat=4, seed=0):
+    """chameleon-tcn meta-trained for a few 5-way 3-shot episodes of 28x28
+    glyphs, then QAT: (cfg, bundle, ds, test classes, fp32 (params,
+    state), QAT (params, state), one episode's tensors)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import EpisodicSampler, GlyphClasses, split_classes
+    from repro_torch.models import build_tcn_bundle
+    from repro_torch.models.tcn import tcn_empty_state
+    from repro_torch.training.episodic import make_episode_step
+    from repro_torch.training.optim import adamw
+
+    cfg = get_config("chameleon-tcn")
+    bundle = build_tcn_bundle(cfg, dev)
+    params = bundle.init(torch.Generator().manual_seed(seed))
+    state = tcn_empty_state(cfg, dev)
+    ds = GlyphClasses(30, seed=seed)
+    train_cls, test_cls = split_classes(30, 0.7, seed=seed)
+    sampler = EpisodicSampler(ds, train_cls, seed=seed + 1)
+    opt = adamw(2e-3)
+    opt_state = opt[0](params)
+    out = []
+    for quantize, eps in ((False, range(episodes)),
+                          (True, range(episodes, episodes + qat))):
+        step = make_episode_step(cfg, opt, quantize=quantize)
+        for ep in eps:
+            batch = [torch.from_numpy(a).to(dev)
+                     for a in sampler.episode(ep, 5, 3, 3)]
+            params, state, opt_state, _, _ = step(params, state, opt_state,
+                                                  *batch)
+        out.append((params, state))
+    return (cfg, bundle, ds, test_cls, *out, batch)
+
+
+def test_train_step_repeats_bit_for_bit(dev):
+    from repro_torch.training.episodic import make_episode_step
+    from repro_torch.training.optim import adamw
+    from repro_torch.utils.trees import tree_leaves
+
+    cfg, _, _, _, (p, st), _, batch = _trained(dev, episodes=2, qat=0)
+    opt = adamw(2e-3)
+    for quantize in (False, True):
+        step = make_episode_step(cfg, opt, quantize=quantize)
+        a = step(p, st, opt[0](p), *batch)
+        b = step(p, st, opt[0](p), *batch)
+        assert all(torch.equal(x, y) for x, y in
+                   zip(tree_leaves(list(a)), tree_leaves(list(b))))
+
+
+def test_trainer_resume_is_bit_exact_on_card(dev, tmp_path):
+    from repro_torch.configs import get_config
+    from repro_torch.data import GlyphClasses
+    from repro_torch.models import build_tcn_bundle
+    from repro_torch.models.tcn import tcn_empty_state
+    from repro_torch.training import TrainConfig, Trainer
+    from repro_torch.utils.trees import tree_leaves
+
+    cfg = get_config("chameleon-tcn")
+    bundle = build_tcn_bundle(cfg, dev)
+    params = bundle.init(torch.Generator().manual_seed(1))
+    ds = GlyphClasses(5, seed=1)
+
+    def data(i):
+        x = np.concatenate([ds.sample(c, 4, seed=i) for c in range(5)])
+        y = np.repeat(np.arange(5), 4).astype(np.int32)
+        return {"x": torch.from_numpy(x.reshape(2, 10, 784, 1)).to(dev),
+                "labels": torch.from_numpy(y.reshape(2, 10)).to(dev)}
+
+    def trainer(d):
+        return Trainer(bundle.loss_fn, params, TrainConfig(
+            steps=5, grad_accum=2, grad_compression="int8_ef",
+            ckpt_dir=str(d), ckpt_every=2, log_every=100), data,
+            model_state=tcn_empty_state(cfg, dev))
+
+    whole, _ = trainer(tmp_path / "a").run()
+    trainer(tmp_path / "b").run(steps=3)
+    resumed = trainer(tmp_path / "b")
+    assert resumed.maybe_resume() == 3
+    again, _ = resumed.run()
+    assert all(torch.equal(x, y) for x, y in
+               zip(tree_leaves(whole), tree_leaves(again)))
+
+
+def _plain_fused_embed(cfg, fused, x, quantize):
+    """make_fused_forward's embedding through tcn_block_fused (the strip
+    entry's plain version) on the card."""
+    from repro_torch.kernels.ref import expand_weight
+    from repro_torch.quant.log2 import fake_quant_act_u4
+
+    k, h = cfg.tcn_kernel, x
+    for i, c in enumerate(cfg.tcn_channels):
+        n = (k - 1) * 2 ** i
+        h, _ = tcn_block_fused(
+            torch.nn.functional.pad(h, (0, 0, n, 0)).contiguous(),
+            h.new_zeros((x.shape[0], n, c)), fused["blocks"][f"b{i}"],
+            dilation=2 ** i, k=k, act_scale=cfg.act_scale, quantize=quantize)
+    emb = torch.relu(h[:, -1, :] @ expand_weight(fused["head_w"])
+                     + fused["head_b"])
+    return fake_quant_act_u4(emb, cfg.act_scale) if quantize else emb
+
+
+def test_trained_fused_forward_and_adapt_match_plain(no_tf32):
+    from repro_torch.core.protonet import (
+        adapt,
+        pn_fc_from_sums,
+        support_sums,
+    )
+    from repro_torch.models.tcn import bake_stream_params, make_fused_forward
+
+    dev = no_tf32
+    cfg, _, _, _, fp32, qat, batch = _trained(dev)
+    sx, sy = batch[0], batch[1]
+    for quantize, (p, st) in ((False, fp32), (True, qat)):
+        _, _, fused = bake_stream_params(p, st, cfg, quantize=quantize)
+        emb = make_fused_forward(cfg, quantize=quantize, device=dev)(
+            fused, sx)[0]
+        assert torch.equal(emb, _plain_fused_embed(cfg, fused, sx, quantize))
+    before = proto_extract.launches
+    w, b = adapt(lambda _, x: x, None, emb, sy, 5, 3)
+    assert proto_extract.launches == before + 1
+    ws, bs = pn_fc_from_sums(support_sums(emb, sy, 5), 3)
+    torch.testing.assert_close(w, ws, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(b, bs, rtol=1e-5, atol=1e-6)
+
+
+def test_served_trained_stream_equals_full_forward(dev):
+    from repro_torch.models.tcn import bake_stream_params, make_fused_forward
+
+    cfg, bundle, ds, test_cls, _, (p, st), _ = _trained(dev)
+    x = np.concatenate([ds.sample(int(c), 1, seed=3) for c in test_cls[:4]])
+    svc = StreamSessionService(bundle, p, st, n_slots=4, max_tenants=1,
+                               max_ways=5, t_chunk=16, quantize=True,
+                               fused=True)
+    sids = [svc.open_session() for _ in range(4)]
+    for a in range(0, 784, 48):
+        res = svc.push_audio({sid: x[i, a:a + 48] for i, sid in
+                              enumerate(sids)})
+    last = torch.from_numpy(np.stack([res[sid]["emb"][-1] for sid in sids]))
+    _, _, fused = bake_stream_params(p, st, cfg, quantize=True)
+    full = make_fused_forward(cfg, quantize=True, device=dev)(
+        fused, torch.from_numpy(x).to(dev))[0]
+    assert torch.equal(last, full.cpu())

@@ -38,7 +38,9 @@ def test_port_files_found():
             "service.py", "convert.py", "log2_matmul.py", "dilated_conv.py",
             "ops.py", "paging.py", "bankpool.py", "rehearsal.py",
             "plane.py", "faults.py", "engine.py", "store.py", "metrics.py",
-            "trace.py", "device.py", "runtime.py"} <= names
+            "trace.py", "device.py", "runtime.py", "synthetic.py",
+            "episodic.py", "compress.py", "optim.py", "trainer.py",
+            "trees.py"} <= names
 
 
 @pytest.mark.parametrize("module", ["repro_torch.kernels.dispatch",
@@ -49,7 +51,11 @@ def test_port_files_found():
                                     "repro_torch.sessions.rehearsal",
                                     "repro_torch.obs",
                                     "repro_torch.checkpoint.store",
-                                    "repro_torch.serving"])
+                                    "repro_torch.serving",
+                                    "repro_torch.data",
+                                    "repro_torch.training",
+                                    "repro_torch.training.episodic",
+                                    "repro_torch.quant.compress"])
 def test_module_imports_first(module):
     """Each of these imports in a fresh interpreter before anything else of
     the port (the configs import the models, which import dispatch; the
@@ -82,13 +88,17 @@ def test_default_device_entry_points_raise_without_a_card():
     )
     from repro_torch.models import build_tcn_bundle
     from repro_torch.models.tcn import make_fused_forward
+    from repro_torch.data import EpisodicSampler, GlyphClasses
     from repro_torch.sessions import PagedBankPool, grid_init
+    from repro_torch.training.episodic import fsl_episode
 
     cfg = get_config("chameleon-tcn")
     for entry in (lambda: build_tcn_bundle(cfg),
                   lambda: make_fused_forward(cfg),
                   lambda: grid_init(cfg, 2),
                   lambda: PagedBankPool(4, 2, 8, 2),
+                  lambda: fsl_episode(None, EpisodicSampler(
+                      GlyphClasses(5, size=8), range(5)), 0, 5, 1),
                   make_log2_matmul_op, make_dilated_conv_op,
                   make_proto_extract_op):
         with pytest.raises(RuntimeError, match="device='cpu'"):

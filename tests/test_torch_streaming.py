@@ -146,7 +146,7 @@ def test_per_step_stream_matches_forward_and_reference():
     st, embs, logits = ts.stream_scan_single(
         p, bnt, cfg, st, torch.tensor(x), torch.ones(T, dtype=torch.bool))
     assert int(st["t"]) == T
-    ef, lf = tt.tcn_forward(p, bnt, cfg, torch.tensor(x)[None])
+    ef, lf, _ = tt.tcn_forward(p, bnt, cfg, torch.tensor(x)[None])
     np.testing.assert_allclose(embs[-1].numpy(), ef[0].numpy(), rtol=RTOL, atol=ATOL)
     sj = js.stream_init_single(jcfg)
     _, ej, lj = js.stream_scan_single(params, bn, jcfg, sj, jnp.asarray(x),
@@ -165,7 +165,7 @@ def test_batched_stream_with_shared_counter_matches_forward():
     for i in range(10):
         st, emb, logits = ts.stream_step(p, bnt, cfg, st, x[:, i])
     assert int(st["t"]) == 10
-    ef, lf = tt.tcn_forward(p, bnt, cfg, x)
+    ef, lf, _ = tt.tcn_forward(p, bnt, cfg, x)
     np.testing.assert_allclose(emb.numpy(), ef.numpy(), rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(logits.numpy(), lf.numpy(), rtol=RTOL, atol=ATOL)
 

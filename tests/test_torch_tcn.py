@@ -86,9 +86,9 @@ def test_eval_forward_matches_reference(quantize):
     x = _x(1)
     ej, lj, _ = jt.tcn_forward(params, bn, jcfg, jnp.asarray(x), train=False,
                                quantize=quantize)
-    et, lt = tt.tcn_forward(params_from_jax(p_np, "cpu"),
-                            params_from_jax(bn_np, "cpu"), cfg,
-                            torch.tensor(x), quantize=quantize)
+    et, lt, _ = tt.tcn_forward(params_from_jax(p_np, "cpu"),
+                               params_from_jax(bn_np, "cpu"), cfg,
+                               torch.tensor(x), quantize=quantize)
     _close(et.numpy(), ej)
     _close(lt.numpy(), lj)
 
@@ -144,6 +144,6 @@ def test_fused_forward_close_to_raw_forward():
     _, _, fused = tt.bake_stream_params(p, bn, cfg)
     x = torch.tensor(_x(3))
     ef, lf = tt.make_fused_forward(cfg, device="cpu")(fused, x)
-    er, lr = tt.tcn_forward(p, bn, cfg, x)
+    er, lr, _ = tt.tcn_forward(p, bn, cfg, x)
     _close(ef.numpy(), er.numpy())
     _close(lf.numpy(), lr.numpy())
