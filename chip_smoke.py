@@ -89,7 +89,29 @@ non-zero):
            quantized services, a 5-shot episode through protonet.adapt,
            cone_eval against the dense forward, the Fig. 8(c) accounting,
            the push tick's latency and profile, and one 784-sample tick
-           (ceil(784/max_chunk_len) launches) equal to t_chunk=16.
+           (ceil(784/max_chunk_len) launches) equal to t_chunk=16;
+  lm       the dense LM family through LMServer on seeded random weights
+           drawn on the card and baked to bf16 once (the baked tree's
+           decode equal to the fp32 tree's per-use cast): olmo-1b at full
+           width and depth, dense and paged (block_len 16) servers side by
+           side (ServeConfig(max_batch=8, seq_cap=1024, decode_chunk=16,
+           prefill_chunk=64)), 8 requests of 37-300 tokens (four sharing a
+           128-token prefix, adopted copy-on-write by the paged service),
+           64 greedy tokens each: paged == dense and t_chunk 16 == 1 bit
+           for bit (tokens and KV rows), token-at-a-time prefill against
+           64-token chunks (layer 0's K/V within one bf16 ulp of its
+           scale, every layer's K/V and the next-step logits within 5e-2
+           of their scale; the greedy streams' agreement reported), a
+           second wave of 16 sessions over the 8 slots (every session
+           parks and resumes; dense and paged) bit-equal to never-parked
+           controls, two sessions spilled through checkpoint/store and
+           restored, bit-equal to never-spilled twins, every logit finite;
+           prefill tokens/s, decode ms per token, launches and idle share
+           of a decode step (profiled), KV bytes per token, pool blocks
+           and the bytes bound of a decode step; then qwen2.5-32b at full
+           width with its depth cut to 2 of 64 layers (GQA 40/8 with
+           attn_kv_repeat, qkv bias, rmsnorm), 16 tokens, no second wave.
+           The LM path reaches none of the four kernels (asserted).
 
     python3 chip_smoke.py --compare-with DIR
 
@@ -2651,6 +2673,418 @@ def phase_train(cfg, dev, seed: int = 13, episodes: int = TRAIN_EPISODES,
 
 
 # ---------------------------------------------------------------------------
+# phase: lm (the dense LM family through LMServer / LMSessionService)
+# ---------------------------------------------------------------------------
+
+LM_SLOTS, LM_SEQ_CAP, LM_T_CHUNK, LM_PREFILL_CHUNK = 8, 1024, 16, 64
+LM_BLOCK, LM_WAVE_SESSIONS = 16, 16
+LM_PROMPT_LEN, LM_SHARED, LM_SHARERS = (37, 300), 128, 4
+LM_GEN, LM_SPILL_EXTRA, LM_TIMED = 64, 8, 20
+
+
+def lm_prompts(rng, n: int, vocab: int, shared) -> list:
+    """``n`` prompts of 37-300 tokens; the first LM_SHARERS start with the
+    ``shared`` 128-token prefix (so the paged service's registry shares
+    its 8 full blocks)."""
+    import numpy as np
+
+    lo, hi = LM_PROMPT_LEN
+    out = []
+    for i in range(n):
+        if i < LM_SHARERS:
+            tail = int(rng.integers(lo - 28, hi - LM_SHARED + 1))
+            body = np.concatenate([shared, rng.integers(0, vocab, tail)])
+        else:
+            body = rng.integers(0, vocab, int(rng.integers(lo, hi + 1)))
+        out.append(body.astype(np.int32))
+    return out
+
+
+def lm_server(bundle, params, **kw):
+    from repro_torch.serving import LMServer, ServeConfig
+
+    svc_kw = {k: kw.pop(k) for k in ("paged", "block_len") if k in kw}
+    cfg = ServeConfig(**{"max_batch": LM_SLOTS, "seq_cap": LM_SEQ_CAP,
+                         "decode_chunk": LM_T_CHUNK,
+                         "prefill_chunk": LM_PREFILL_CHUNK, **kw})
+    return LMServer(bundle, params, cfg, **svc_kw)
+
+
+def lm_open(srv, prompts, dev) -> tuple[list, float]:
+    """Open every prompt (chunked prefill at open); (sids, seconds)."""
+    sync(dev)
+    t0 = time.perf_counter()
+    sids = [srv.open_session(p) for p in prompts]
+    sync(dev)
+    return sids, time.perf_counter() - t0
+
+
+def lm_kv(srv, sids) -> list:
+    """Every session's cache rows [0, steps) as uint16 bits."""
+    from repro_torch.convert import numpy_bits
+
+    return [numpy_bits(srv.service.live_column(s)) for s in sids]
+
+
+def same_kv(a: list, b: list) -> bool:
+    import numpy as np
+
+    from repro_torch.utils.trees import tree_leaves
+
+    return all(np.array_equal(x, y) for ta, tb in zip(a, b)
+               for x, y in zip(tree_leaves(ta), tree_leaves(tb)))
+
+
+def lm_launch_counts() -> dict:
+    from repro_torch.kernels import dilated_conv, log2_matmul
+    from repro_torch.kernels.proto_extract import proto_extract
+    from repro_torch.kernels.tcn_block import tcn_block, tcn_chunk
+
+    return {"tcn_block": tcn_block.launches + tcn_chunk.launches,
+            "proto_extract": proto_extract.launches,
+            "log2_matmul": log2_matmul.launches,
+            "dilated_conv": dilated_conv.launches}
+
+
+def zero_launch_counts() -> None:
+    from repro_torch.kernels import dilated_conv, log2_matmul
+    from repro_torch.kernels.proto_extract import proto_extract
+    from repro_torch.kernels.tcn_block import tcn_block, tcn_chunk
+
+    for k in (tcn_block, tcn_chunk, proto_extract, log2_matmul,
+              dilated_conv):
+        k.launches = 0
+
+
+def lm_kv_layers(kv: list) -> dict:
+    """Per cache leaf ("k", "v"), one fp32 array per layer of every
+    session's rows, concatenated: uint16 bf16 bits back to values."""
+    import numpy as np
+    import torch
+
+    out = {}
+    for key in ("k", "v"):
+        bits = np.concatenate([t["dense"][key] for t in kv], axis=1)
+        vals = torch.from_numpy(bits.view(np.int16)).view(torch.bfloat16)
+        out[key] = vals.float().numpy()
+    return out
+
+
+def lm_next_logits(srv, sids, bundle, dev):
+    """Logits of each session's next step (its pending token at its
+    position) on a copy of the server's cache."""
+    import torch
+
+    svc = srv.service
+    tok = torch.zeros((svc.n_slots, 1), dtype=torch.int32)
+    pos = torch.zeros(svc.n_slots, dtype=torch.int32)
+    for s in sids:
+        sess, slot = svc.sessions[s], svc.sched.slot_of[s]
+        tok[slot, 0] = int(sess.prompt[sess.steps])
+        pos[slot] = sess.steps
+    cache = {"dense": {k: v.clone() for k, v in svc.cache["dense"].items()}}
+    with torch.no_grad():
+        lg, _ = bundle.decode_fn(svc._params, cache,
+                                 {"tokens": tok.to(dev), "pos": pos.to(dev)})
+    return lg[[svc.sched.slot_of[s] for s in sids]].cpu().numpy()
+
+
+def lm_schedule(bundle, params, prompts, dev, gen, name) -> dict:
+    """The chunk-schedule contract (64-token chunks against token-at-a-time
+    prefill, the same prompts): a chunk's GEMMs run at M=64 where the
+    decode's run at M=8, and the bf16 casts after them (the residual, the
+    softmax probabilities) turn fp32 rounding into bf16 ulps that later
+    layers carry on, so the two are not bit-identical.  Held: layer 0's
+    K/V (a GEMM of the embedded tokens, no attention before it) within one
+    bf16 ulp of the layer's scale; every layer's K/V, and the next-step
+    logits, within 5e-2 of their scale (the bf16 tolerance of the parity
+    tests).  Reported: the per-layer spread in ulps of the layer's scale,
+    the share of elements that differ, and the greedy streams' agreement
+    (the first step where they part, against the top-2 margin there)."""
+    import numpy as np
+
+    chunked = lm_server(bundle, params)
+    c_sids, _ = lm_open(chunked, prompts, dev)
+    scan = lm_server(bundle, params, prefill_chunk=0)
+    s_sids, _ = lm_open(scan, prompts, dev)
+    scan.push({s: 0 for s in s_sids})
+    a = lm_kv_layers(lm_kv(chunked, c_sids))
+    b = lm_kv_layers(lm_kv(scan, s_sids))
+    exact = all(np.array_equal(a[k], b[k]) for k in a)
+    worst, rel, shares = 0.0, 0.0, []
+    for key in ("k", "v"):
+        for layer, (x, y) in enumerate(zip(a[key], b[key])):
+            scale = float(np.abs(x).max())
+            ulp = 2.0 ** (np.floor(np.log2(scale)) - 7)
+            d = float(np.abs(x - y).max())
+            if layer == 0 and d > ulp:
+                raise RuntimeError(f"{name}: layer-0 {key} rows differ by "
+                                   f"{d / ulp:.1f} ulps of their scale")
+            worst, rel = max(worst, d / ulp), max(rel, d / scale)
+            shares.append(float((x != y).mean()))
+    la = lm_next_logits(chunked, c_sids, bundle, dev)
+    lb = lm_next_logits(scan, s_sids, bundle, dev)
+    dl = float(np.abs(la - lb).max())
+    lscale = max(1.0, float(np.abs(la).max()))
+    chunked.step(gen)
+    scan.step(gen)
+    parts = []
+    for c, s in zip(c_sids, s_sids):
+        x, y = chunked.outputs[c], scan.outputs[s]
+        parts.append(next((j for j in range(gen) if x[j] != y[j]), gen))
+    top = np.sort(la, axis=-1)[:, -2:]
+    margins = top[:, 1] - top[:, 0]
+    log(f"{name}: chunk schedule (64-token chunks vs token at a time): KV "
+        f"{'bit-exact' if exact else 'not bit-exact'}; layer 0 within 1 "
+        f"ulp of its scale; worst layer {worst:.1f} ulps of its scale "
+        f"({rel:.2e} of it); elements differing per layer "
+        f"{min(shares):.2e}-{max(shares):.2e}; next-step logits differ by "
+        f"{dl:.3g} (scale {lscale:.3g}, top-2 margins "
+        f"{margins.min():.3g}-{margins.max():.3g}); greedy streams equal "
+        f"for {sum(p == gen for p in parts)} of {len(parts)} requests over "
+        f"{gen} tokens, first parting steps {parts}")
+    if rel > 5e-2 or dl > 5e-2 * lscale:
+        raise RuntimeError(f"{name}: chunk-schedule contract broken (KV "
+                           f"{rel:.3g} of scale, logits {dl:.3g})")
+    return {"max_ulps": worst, "exact": exact, "logit_diff": dl,
+            "parts": parts}
+
+
+def phase_lm(cfg, dev, smi: str, seed: int = 20, gen: int = LM_GEN,
+             wave: bool = True, depth_note: str = "full depth"):
+    """The dense LM family served through LMServer on seeded random weights
+    (drawn on the device, baked to the activation dtype once): dense and
+    paged (block_len 16) services side by side, 8 requests of 37-300
+    tokens (four sharing a 128-token prefix), ``gen`` greedy tokens each;
+    t_chunk 16 == 1 and paged == dense bit for bit (tokens and KV rows),
+    the chunk-schedule contract (``lm_schedule``), and with ``wave`` a
+    second wave of
+    16 sessions over the 8 slots (parking and resuming) bit-equal to
+    never-parked controls and a spill/restore bit-equal to a never-spilled
+    continuation; every logit finite; prefill tokens/s, decode ms per
+    token, launches and idle share of a decode step, KV bytes per token,
+    pool blocks live and the bytes bound of a decode step."""
+    import numpy as np
+    import torch
+    from repro_torch.models import build_bundle
+    from repro_torch.models.params import param_count
+    from repro_torch.models.transformer import bake_lm_params
+    from repro_torch.utils.trees import tree_leaves
+
+    name = f"lm {cfg.name} ({cfg.n_layers} layers, {depth_note})"
+    bundle = build_bundle(cfg, dev)
+    t0 = time.perf_counter()
+    raw = bundle.init(torch.Generator(device=dev).manual_seed(seed))
+    params = bake_lm_params(raw, cfg)
+    sync(dev)
+    n_params = param_count(bundle.param_defs)
+    w_bytes = sum(t.numel() * t.element_size() for t in
+                  tree_leaves(params))
+    log(f"{name}: {n_params:,} params drawn on the card and baked to "
+        f"{cfg.act_dtype} ({w_bytes / 1e9:.3f} GB) in "
+        f"{time.perf_counter() - t0:.2f} s [{smi}]")
+    # the baked tree against the reference's per-use cast: one decode
+    # step on the fp32 tree and on the baked one, bit for bit
+    rng = np.random.default_rng(seed)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (LM_SLOTS, 1))
+                           .astype(np.int32)).to(dev)
+    pos = torch.zeros(LM_SLOTS, dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        la, _ = bundle.decode_fn(raw, bundle.empty_cache(LM_SLOTS, 32),
+                                 {"tokens": tok, "pos": pos})
+        lb, _ = bundle.decode_fn(params, bundle.empty_cache(LM_SLOTS, 32),
+                                 {"tokens": tok, "pos": pos})
+    if not torch.equal(la, lb):
+        raise RuntimeError(f"{name}: the baked tree's decode differs from "
+                           "the per-use cast's")
+    del raw, la, lb
+    torch.cuda.empty_cache()
+
+    shared = rng.integers(0, cfg.vocab_size, LM_SHARED).astype(np.int32)
+    prompts = lm_prompts(rng, LM_SLOTS, cfg.vocab_size, shared)
+    n_prefill = sum(len(p) - 1 for p in prompts)
+    zero_launch_counts()
+    dense = lm_server(bundle, params)
+    paged = lm_server(bundle, params, paged=True, block_len=LM_BLOCK)
+    d_sids, d_s = lm_open(dense, prompts, dev)
+    p_sids, p_s = lm_open(paged, prompts, dev)
+    st = paged.stats()["paged"]
+    hits = paged.metrics()["prefix_block_hits_total"][0]["value"]
+    log(f"{name}: prefill {n_prefill} prompt tokens (8 prompts of "
+        f"{min(map(len, prompts))}-{max(map(len, prompts))}) dense "
+        f"{d_s * 1e3:.1f} ms = {n_prefill / d_s:,.0f} tokens/s, paged "
+        f"{p_s * 1e3:.1f} ms = {(n_prefill - hits * LM_BLOCK) / p_s:,.0f} "
+        f"tokens/s ({hits} prefix blocks adopted, "
+        f"{st['blocks_cow_shared']} shared) [{smi}]")
+    if hits < (LM_SHARERS - 1) * LM_SHARED // LM_BLOCK:
+        raise RuntimeError(f"{name}: prefix sharing adopted {hits} blocks")
+    dense.step(gen)
+    paged.step(gen)
+    d_out = [dense.outputs[s] for s in d_sids]
+    if [paged.outputs[s] for s in p_sids] != d_out \
+            or any(len(o) != gen for o in d_out):
+        raise RuntimeError(f"{name}: paged tokens differ from dense")
+    d_kv = lm_kv(dense, d_sids)
+    if not same_kv(lm_kv(paged, p_sids), d_kv):
+        raise RuntimeError(f"{name}: paged KV rows differ from dense")
+    st = paged.stats()["paged"]
+    log(f"{name}: paged == dense bit for bit ({gen} tokens x 8, KV rows); "
+        f"pool blocks live {st['blocks_live']}/{st['n_blocks']}, "
+        f"CoW-shared {st['blocks_cow_shared']}, prefix entries "
+        f"{st['prefix_entries']}")
+    del paged
+    # t_chunk = 1: the same tokens and KV bits
+    one = lm_server(bundle, params, decode_chunk=1)
+    o_sids, _ = lm_open(one, prompts, dev)
+    one.step(gen)
+    if [one.outputs[s] for s in o_sids] != d_out \
+            or not same_kv(lm_kv(one, o_sids), d_kv):
+        raise RuntimeError(f"{name}: t_chunk=1 differs from t_chunk=16")
+    log(f"{name}: t_chunk=16 == t_chunk=1 bit for bit (tokens, KV rows; "
+        f"{one.service.dispatches} vs {dense.service.dispatches} "
+        "dispatches)")
+    del one
+    # the chunk-schedule contract, on the same 8 prompts: 64-token prefill
+    # chunks against token-at-a-time prefill (prefill_chunk=0, the body fed
+    # through the decode scan by a zero-token push)
+    sched = lm_schedule(bundle, params, prompts, dev, gen, name)
+    ulps, exact = sched["max_ulps"], sched["exact"]
+    # every logit finite: each prompt's prefill and a batched decode step
+    with torch.no_grad():
+        for p in prompts:
+            lg, _ = bundle.prefill_fn(params, {"tokens": torch.from_numpy(
+                p[None]).to(dev)})
+            if not bool(torch.isfinite(lg).all()):
+                raise RuntimeError(f"{name}: non-finite prefill logits")
+        last = torch.tensor([o[-1] for o in d_out], dtype=torch.int32,
+                            device=dev)[:, None]
+        pos = torch.tensor([dense.service.sessions[s].steps
+                            for s in d_sids], dtype=torch.int32, device=dev)
+        cache = {"dense": {k: v.clone() for k, v in
+                           dense.service.cache["dense"].items()}}
+        lg, _ = bundle.decode_fn(params, cache, {"tokens": last, "pos": pos})
+        if not bool(torch.isfinite(lg).all()):
+            raise RuntimeError(f"{name}: non-finite decode logits")
+        del cache
+    result = {}
+    if wave:
+        result.update(lm_wave(bundle, params, cfg, dev, rng, shared, prompts,
+                              dense, d_sids, gen, name))
+    # timings on the dense server: a T=1 dispatch is one token per lane
+    sids = [s for s in d_sids if not dense.service.sessions[s].done]
+    one_tok = lambda: dense.push({s: 1 for s in sids})
+    chunk = lambda: dense.push({s: LM_T_CHUNK for s in sids})
+    ms1 = time_ms(one_tok, dev, n=LM_TIMED)
+    ms16 = time_ms(chunk, dev, n=LM_TIMED // 4) / LM_T_CHUNK
+    prof = profile_tick(one_tok, ticks=10, name=f"{name} decode step")
+    kv_tok = dense.service.kv_park_bytes(1)
+    live = sum(dense.service.sessions[s].steps for s in sids)
+    kv_full = kv_tok * LM_SLOTS * LM_SEQ_CAP
+    lo = (w_bytes + kv_tok * live) / PEAK_BYTES * 1e3
+    hi = (w_bytes + kv_full) / PEAK_BYTES * 1e3
+    log(f"{name}: decode p50 {ms1:.3f} ms per token (T=1 dispatch of "
+        f"{len(sids)} lanes, {LM_TIMED} timed), {ms16:.3f} ms per token in "
+        f"T={LM_T_CHUNK} dispatches; {prof['launches']:.0f} launches and "
+        f"idle share {1 - prof['busy_ms'] / prof['wall_ms']:.4f} a step; "
+        f"KV {kv_tok:,} bytes a token; bytes bound of a step "
+        f"{lo:.3f} ms (baked weights {w_bytes / 1e9:.3f} GB + the {live} "
+        f"live KV rows) to {hi:.3f} ms (+ the full {LM_SEQ_CAP}-row "
+        f"columns the masked attention reads) at 3.35 TB/s [{smi}]")
+    # where a prefill's time goes: a 129-token prompt opened (two 64-token
+    # chunks) and closed on the dense server
+    dense.close(sids[0])
+    body = np.concatenate([shared, shared[:1]])
+    prof_p = profile_tick(lambda: dense.close(dense.open_session(body)),
+                          ticks=5, name=f"{name} open (2 prefill chunks)")
+    counts = lm_launch_counts()
+    if any(counts.values()):
+        raise RuntimeError(f"{name}: the LM path launched a port kernel "
+                           f"{counts}; it should reach none")
+    log(f"{name}: launches of the four port kernels on this path: {counts}")
+    result.update(prefill_tps=n_prefill / d_s, ms_per_token=ms1,
+                  ms_per_token_t16=ms16, launches=prof["launches"],
+                  idle=1 - prof["busy_ms"] / prof["wall_ms"],
+                  bound_ms=(lo, hi), kv_bytes_per_token=kv_tok,
+                  ulps=ulps, exact=exact,
+                  prefill_launches=prof_p["launches"] / 2)
+    del dense
+    torch.cuda.empty_cache()
+    return result
+
+
+def lm_wave(bundle, params, cfg, dev, rng, shared, prompts, dense, d_sids,
+            gen, name) -> dict:
+    """16 sessions over the 8 slots (``max_sessions=16``), dense and
+    paged: every session parks and resumes between two ``step(gen // 2)``
+    calls; each equals its never-parked control.  Then 2 sessions spill
+    through checkpoint/store into a fresh service and continue bit for
+    bit with their never-spilled twins."""
+    import numpy as np
+
+    second = lm_prompts(rng, LM_WAVE_SESSIONS - LM_SLOTS, cfg.vocab_size,
+                        shared)
+    ctl2 = lm_server(bundle, params)
+    c2_sids, _ = lm_open(ctl2, second, dev)
+    ctl2.step(gen)
+    want = [dense.outputs[s] for s in d_sids] \
+        + [ctl2.outputs[s] for s in c2_sids]
+    del ctl2
+    out = {}
+    for paged in (False, True):
+        kw = {"paged": True, "block_len": LM_BLOCK} if paged else {}
+        srv = lm_server(bundle, params, max_sessions=LM_WAVE_SESSIONS, **kw)
+        sids, _ = lm_open(srv, prompts + second, dev)
+        srv.step(gen // 2)
+        srv.step(gen - gen // 2)
+        got = [srv.outputs[s] for s in sids]
+        ev = srv.stats()["evictions"]
+        if got != want or ev < LM_WAVE_SESSIONS:
+            raise RuntimeError(f"{name}: the {'paged' if paged else 'dense'}"
+                               f" wave differs from its controls (evictions"
+                               f" {ev})")
+        log(f"{name}: {'paged' if paged else 'dense'} wave of "
+            f"{LM_WAVE_SESSIONS} sessions on {LM_SLOTS} slots: {ev} "
+            f"evictions, every stream bit-equal to its never-parked "
+            f"control; parked bytes now {srv.stats()['parked_blob_bytes']:,}")
+        out[f"wave_{'paged' if paged else 'dense'}"] = srv
+    # spill two of the dense wave's sessions, restore, continue
+    srv = out.pop("wave_dense")
+    paged_srv = out.pop("wave_paged")
+    del paged_srv
+    keep = [0, LM_SLOTS]  # one of each wave
+    spill = ROOT / "build" / "lm_spill.npz"
+    for i, sid in enumerate(sorted(srv.service.sessions)):
+        if i not in keep:
+            srv.close(sid)
+    t0 = time.perf_counter()
+    srv.service.spill_parking(str(spill), include_bound=True)
+    t_spill = time.perf_counter() - t0
+    from repro_torch.serving import LMServer, ServeConfig
+
+    fresh = LMServer(bundle, params, ServeConfig(
+        max_batch=LM_SLOTS, seq_cap=LM_SEQ_CAP, decode_chunk=LM_T_CHUNK,
+        prefill_chunk=LM_PREFILL_CHUNK, max_sessions=LM_WAVE_SESSIONS))
+    t0 = time.perf_counter()
+    restored = fresh.service.restore_parking(str(spill))
+    t_restore = time.perf_counter() - t0
+    twin = lm_server(bundle, params)
+    t_sids, _ = lm_open(twin, [(prompts + second)[i] for i in keep], dev)
+    twin.step(gen)
+    cont = fresh.push({s: LM_SPILL_EXTRA for s in restored})
+    want2 = twin.push({s: LM_SPILL_EXTRA for s in t_sids})
+    if [cont[s] for s in restored] != [want2[s] for s in t_sids]:
+        raise RuntimeError(f"{name}: restored sessions differ from their "
+                           "never-spilled twins")
+    size = spill.stat().st_size
+    spill.unlink()
+    log(f"{name}: spilled {len(restored)} sessions ({size:,} bytes, "
+        f"{t_spill:.2f} s), restored ({t_restore:.2f} s), "
+        f"{LM_SPILL_EXTRA} more tokens each bit-equal to never-spilled "
+        "twins")
+    return {"spill_bytes": size}
+
+
+# ---------------------------------------------------------------------------
 # the launch floor: device time of a kernel that does nothing
 # ---------------------------------------------------------------------------
 
@@ -2772,6 +3206,10 @@ def main() -> int:
                        ts=(1, 2, 4, 8, T_CHUNK, AUDIO_LEN))
     phase("audio timings", phase_timings, audio_cfg, dev, embed_t=AUDIO_LEN)
     audio = phase("audio", phase_audio, audio_cfg, dev)
+    phase("lm", phase_lm, get_config("olmo-1b"), dev, smi)
+    phase("lm qwen", phase_lm, get_config("qwen2.5-32b").replace(
+        n_layers=2), dev, smi, gen=16, wave=False,
+        depth_note="depth cut to 2 of its 64 layers")
     if args.compare_with is not None:
         phase("compare", phase_compare, dev, audio_cfg, cfg,
               args.compare_with.resolve())

@@ -1,5 +1,6 @@
-"""PyTorch/CUDA port of the Chameleon TCN system (streaming sessions and
-few-shot enrollment) for NVIDIA Hopper.
+"""PyTorch/CUDA port of the Chameleon TCN system (streaming sessions,
+few-shot and continual enrollment, training) and of the reference's dense
+LM serving path, for NVIDIA Hopper.
 
 Mirrors ``repro``'s subpackage and module names so every module has an
 obvious counterpart in the JAX reference, but imports nothing of it: the

@@ -13,15 +13,18 @@ written by either package loads in the other:
   * session spills (``save_sessions``/``load_sessions``): one ``.npz`` of
     ``/``-joined path keys ("<sid>/blocks/b0/ring1"), a ``__meta__`` JSON
     blob of the service's bookkeeping, and a ``__dtypes__`` sidecar in the
-    meta for dtypes numpy cannot name (written by the reference for
-    bfloat16 LM columns).  Written to ``path + ".tmp"`` and moved into
-    place with ``os.replace``.
+    meta for dtypes numpy cannot name.  Written to ``path + ".tmp"`` and
+    moved into place with ``os.replace``.
 
-The port reads and writes native numpy dtypes only (every TCN leaf is
-one): it has no ``ml_dtypes``, so a spill whose sidecar names another
-dtype is refused with a ``TypeError``.  ``restore_into`` puts each leaf on
-the device of the target's leaf; the reference's ``shardings=`` is not
-ported (one card).
+bfloat16 (the LM KV cache): the port has no ``ml_dtypes``, so on the host a
+bf16 leaf is its bits, tagged by the ``|V2`` dtype (``utils/host.py``).
+``save_sessions`` writes such a leaf as the reference writes an
+``ml_dtypes.bfloat16`` one (``|V2`` bytes) with the ``"bfloat16"`` sidecar
+entry, so the reference reads it back as bfloat16; ``load_sessions`` turns
+a ``"bfloat16"`` entry of either package's file into the same bits.  A
+sidecar naming any other dtype numpy cannot name (fp8) is refused with a
+``TypeError``.  ``restore_into`` puts each leaf on the device of the
+target's leaf; the reference's ``shardings=`` is not ported (one card).
 """
 
 from __future__ import annotations
@@ -35,11 +38,14 @@ import zlib
 import numpy as np
 import torch
 
+from repro_torch.utils.host import BF16_HOST, from_host
+from repro_torch.utils.host import to_host as _host
 
-def _host(x) -> np.ndarray:
-    if isinstance(x, torch.Tensor):
-        return x.detach().to("cpu").numpy()
-    return np.asarray(x)
+_BF16 = "bfloat16"
+
+
+def _dtype_name(arr: np.ndarray) -> str:
+    return _BF16 if arr.dtype == BF16_HOST else str(arr.dtype)
 
 
 def _is_namedtuple(x) -> bool:
@@ -102,7 +108,7 @@ def save(ckpt_dir: str, step: int, tree) -> str:
         manifest["arrays"][key] = {
             "file": fname,
             "shape": list(arr.shape),
-            "dtype": str(arr.dtype),
+            "dtype": _dtype_name(arr),
             "crc32": zlib.crc32(np.ascontiguousarray(arr).tobytes()),
         }
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
@@ -171,8 +177,7 @@ def restore_into(ckpt_dir: str, target_tree, *, verify_crc: bool = True):
         if key not in flat:
             raise KeyError(f"checkpoint missing array '{key}'")
         if isinstance(like, torch.Tensor):
-            return torch.from_numpy(np.array(flat[key])).to(like.device,
-                                                            like.dtype)
+            return from_host(flat[key], like.device, like.dtype)
         return np.asarray(flat[key], dtype=np.asarray(like).dtype)
 
     return step, _map_leaves(leaf, target_tree)
@@ -192,12 +197,15 @@ _DTYPES_KEY = "__dtypes__"
 
 
 def _np_dtype(name: str) -> np.dtype:
+    if name == _BF16:
+        return BF16_HOST
     try:
         return np.dtype(name)
     except TypeError:
         raise TypeError(
             f"spill holds dtype {name!r}, which numpy cannot name without "
-            "ml_dtypes; the port reads native dtypes only") from None
+            "ml_dtypes; the port reads native dtypes and bfloat16 only") \
+            from None
 
 
 def _flatten_parking(parking: dict) -> dict:
@@ -227,6 +235,9 @@ def save_sessions(path: str, parking: dict, meta: dict | None = None) -> str:
     if empty:
         raise ValueError(f"session blobs with no arrays cannot round-trip "
                          f"through npz: sids {sorted(empty)}")
+    dtypes = {k: _BF16 for k, a in flat.items() if a.dtype == BF16_HOST}
+    if dtypes:
+        meta = {**(meta or {}), _DTYPES_KEY: dtypes}
     if meta is not None:
         flat[_META_KEY] = np.frombuffer(
             json.dumps(meta).encode(), dtype=np.uint8)
@@ -242,9 +253,9 @@ def save_sessions(path: str, parking: dict, meta: dict | None = None) -> str:
 
 def load_sessions(path: str):
     """Restore (parking, meta) written by ``save_sessions`` of either
-    package.  Leaves come back as numpy arrays (0-d for scalars);
-    nibble-packed leaves keep their {"u4c", "scale"} record shape, which
-    sessions/state.unpack_slot decodes."""
+    package.  Leaves come back as numpy arrays (0-d for scalars), bfloat16
+    as ``BF16_HOST`` bits; nibble-packed leaves keep their {"u4c",
+    "scale"} record shape, which sessions/state.unpack_slot decodes."""
     parking: dict[int, dict] = {}
     meta = None
     with np.load(path) as z:

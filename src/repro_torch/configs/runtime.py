@@ -28,7 +28,7 @@ from dataclasses import dataclass, fields
 
 # asserted == the owning modules' ENV_VAR constants in
 # tests/test_torch_protocol.py (this module imports nothing of the port)
-ENV_PAGED = "REPRO_TORCH_PAGED"                      # no LM sessions yet
+ENV_PAGED = "REPRO_TORCH_PAGED"                      # sessions/lm.py
 ENV_FUSED = "REPRO_TORCH_TCN_FUSED"                  # sessions/service.py
 ENV_KERNEL_BACKEND = "REPRO_TORCH_KERNEL_BACKEND"    # kernels/dispatch.py
 ENV_TRACE = "REPRO_TORCH_TRACE"                      # obs/trace.py
@@ -53,7 +53,7 @@ def env_bool(name: str, default: bool = False) -> bool:
 class RuntimeConfig:
     """Resolved process-level switches (precedence in the module docstring).
 
-    paged            LM caches paged (no LM sessions in the port yet)
+    paged            LM KV caches use the paged block-pool layout
     fused            TCN streaming runs the fused kernel path (default on)
     kernel_backend   force a kernels/dispatch backend (None = auto)
     trace_path       Perfetto trace output path (None = tracing off); the

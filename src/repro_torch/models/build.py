@@ -1,11 +1,26 @@
-"""Model bundles — the TCN bundle only (``repro/models/build.py``'s
-``build_tcn_bundle``); the LM families come in a later slice.
+"""Model bundles: one functional API per architecture family.
 
-A ``Bundle`` carries the config, the param defs, the device the bundle's
-tensors live on, ``loss_fn`` (the train-mode forward and the FC head's
-cross-entropy, what ``training/trainer.py`` differentiates),
-``prefill_fn`` and ``embed_fn``, the shot embedder the PN-as-FC learning
-head (core/protonet.py) and the session service consume.
+The port of ``repro/models/build.py`` for the ``tcn`` family and the
+``dense`` LM family (olmo-1b, stablelm-1.6b, qwen2.5-32b, command-r-35b);
+``build_bundle`` raises ``NotImplementedError`` for the families later
+slices bring, so a moe/rwkv/hybrid/vlm/audio config never builds
+something else.
+
+A ``Bundle`` carries the config, the param defs, the device its tensors
+live on and the functions:
+
+  * TCN: ``loss_fn`` (the train-mode forward and the FC head's
+    cross-entropy, what ``training/trainer.py`` differentiates),
+    ``prefill_fn`` and ``embed_fn`` (the shot embedder of the PN-as-FC
+    head and the session service);
+  * LM: ``prefill_fn(params, {"tokens"}) -> (logits_last, cache)``,
+    ``decode_fn(params, cache, {"tokens" (B, 1), "pos"}) -> (logits
+    (B, V), cache)``, ``step_fn`` (the same at (B, S), logits at every
+    position: the chunked-prefill step), ``empty_cache(B, S)`` and
+    ``cache_specs(B, S)`` (the same shapes on the ``meta`` device), and
+    ``embed_fn`` (mean final hidden state).  Cached calls write the cache
+    in place and return it; ``pos`` is an int, or a tensor 0-d or per
+    lane (B,).  LM training (``loss_fn``) comes with a later slice.
 """
 
 from __future__ import annotations
@@ -18,6 +33,15 @@ import torch
 from repro_torch.kernels.dispatch import require_device
 from repro_torch.models import tcn as tcn_mod
 from repro_torch.models.config import ArchConfig
+from repro_torch.models.params import init_params
+from repro_torch.models.transformer import (
+    act_dtype,
+    backbone,
+    embed_tokens,
+    logits_all,
+    logits_last,
+    model_param_defs,
+)
 
 
 @dataclass
@@ -29,10 +53,20 @@ class Bundle:
     # (params, batch, state=None, quantize=False)
     #   -> (loss, ({"acc": acc}, new_state))
     loss_fn: Callable
-    prefill_fn: Callable  # (params, batch) -> (logits, {})
+    prefill_fn: Callable  # TCN: (params, batch) -> (logits, {})
+    decode_fn: Callable | None = None   # LM only (module docstring)
+    step_fn: Callable | None = None
+    empty_cache: Callable | None = None
+    cache_specs: Callable | None = None
 
     def init(self, generator: torch.Generator) -> dict:
-        return tcn_mod.init_params(self.param_defs, generator, self.device)
+        """Seeded params on the bundle's device.  The TCN draws on the CPU
+        and moves the tree; an LM tree (1.3 B values at olmo-1b) is drawn
+        on the device, so ``generator`` must live there."""
+        if self.cfg.family == "tcn":
+            return tcn_mod.init_params(self.param_defs, generator,
+                                       self.device)
+        return init_params(self.param_defs, generator, self.device)
 
 
 def cross_entropy(logits, labels):
@@ -71,3 +105,84 @@ def build_tcn_bundle(cfg: ArchConfig, device="cuda") -> Bundle:
     return Bundle(cfg=cfg, param_defs=tcn_mod.tcn_param_defs(cfg),
                   device=dev, embed_fn=embed_fn, loss_fn=loss_fn,
                   prefill_fn=prefill_fn)
+
+
+# ---------------------------------------------------------------------------
+# Decoder-only LM bundle (dense family)
+# ---------------------------------------------------------------------------
+
+def make_empty_cache(cfg: ArchConfig, B: int, S: int, dtype=torch.bfloat16,
+                     device="cuda") -> dict:
+    """Zeroed KV cache: {"dense": {"k", "v"}} of (L, B, S, Hkv, Dh)."""
+    shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.dh)
+    return {"dense": {"k": torch.zeros(shape, dtype=dtype, device=device),
+                      "v": torch.zeros(shape, dtype=dtype, device=device)}}
+
+
+def _as_pos(pos, dev):
+    """A cached step's position as a tensor (as the reference's traced
+    ``pos``, so ``attention`` never takes the prefill-only chunked path)."""
+    if isinstance(pos, torch.Tensor):
+        return pos.to(dev, torch.int32)
+    return torch.as_tensor(pos, dtype=torch.int32).to(dev)
+
+
+def build_lm_bundle(cfg: ArchConfig, device="cuda") -> Bundle:
+    dev = require_device(device)
+    defs = model_param_defs(cfg)
+    adt = act_dtype(cfg)
+
+    def prefill_fn(params, batch):
+        x = embed_tokens(params, cfg, batch["tokens"])
+        cache = make_empty_cache(cfg, x.shape[0], x.shape[1], adt, dev)
+        h = backbone(params, cfg, x, 0, cache)
+        return logits_last(params, cfg, h), cache
+
+    def step_fn(params, cache, batch):
+        x = embed_tokens(params, cfg, batch["tokens"])
+        h = backbone(params, cfg, x, _as_pos(batch["pos"], dev), cache)
+        return logits_all(params, cfg, h), cache
+
+    def decode_fn(params, cache, batch):
+        x = embed_tokens(params, cfg, batch["tokens"])
+        h = backbone(params, cfg, x, _as_pos(batch["pos"], dev), cache)
+        return logits_last(params, cfg, h), cache
+
+    def embed_fn(params, batch):
+        x = embed_tokens(params, cfg, batch["tokens"])
+        return backbone(params, cfg, x, 0, None).mean(dim=1)
+
+    def loss_fn(params, batch):
+        raise NotImplementedError(
+            "LM training (loss_fn, chunked_cross_entropy, the norms' "
+            "backward) comes with the LM training slice")
+
+    return Bundle(
+        cfg=cfg, param_defs=defs, device=dev, embed_fn=embed_fn,
+        loss_fn=loss_fn, prefill_fn=prefill_fn, decode_fn=decode_fn,
+        step_fn=step_fn,
+        empty_cache=lambda B, S: make_empty_cache(cfg, B, S, adt, dev),
+        cache_specs=lambda B, S: make_empty_cache(cfg, B, S, adt, "meta"))
+
+
+# the slice of the port that brings each family not built here
+_LATER = {
+    "moe": "the MoE/MLA slice (models/moe.py, mla_attn: deepseek-v2-lite, "
+           "moonshot)",
+    "rwkv": "the recurrent-cache slice (models/rwkv.py)",
+    "hybrid": "the recurrent-cache slice (models/ssm.py, the zamba hybrid)",
+    "vlm": "the vlm/audio front-end and encoder-decoder slice",
+    "audio": "the vlm/audio front-end and encoder-decoder slice",
+}
+
+
+def build_bundle(cfg: ArchConfig, device="cuda") -> Bundle:
+    if cfg.family == "tcn":
+        return build_tcn_bundle(cfg, device)
+    if cfg.family == "dense":
+        return build_lm_bundle(cfg, device)
+    if cfg.family in _LATER:
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} is not ported yet; it comes "
+            f"with {_LATER[cfg.family]}")
+    raise ValueError(f"unknown family {cfg.family!r}")

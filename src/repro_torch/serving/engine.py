@@ -1,7 +1,21 @@
-"""Batched serving engine: the TCN streaming server.
+"""Batched serving engines: the LM server and the TCN streaming server.
 
-The port of ``repro/serving/engine.py``, TCN half (``LMServer`` and
-``ServeConfig`` wait for the LM family).  ``TCNStreamServer`` wraps
+The port of ``repro/serving/engine.py``.  Both keep a fixed batch shape and
+move requests on and off slots between steps.
+
+``LMServer`` wraps ``sessions/lm.LMSessionService`` (per-lane positions,
+chunked decode dispatches, chunked prefill, KV park/resume, seq_cap
+retirement) behind the historical ``add_request``/``step``/``outputs``/
+``finish`` surface.  ``ServeConfig`` sizes it: the paper's dual mode maps
+to a full batch ("throughput") or a quarter of it ("low-power").  By
+default ``max_sessions`` equals the batch, so admission beyond the grid
+raises (back-pressure); a larger ``max_sessions`` oversubscribes the grid
+with eviction to the host parking lot.  ``speculative > 0`` raises
+``NotImplementedError``: the drafter and verifier (``sessions/spec.py``)
+are not ported yet, and a server asked to speculate must not quietly
+decode greedily.
+
+``TCNStreamServer`` wraps
 ``sessions/service.StreamSessionService``: one session per stream, all
 advanced by the service's fused tick (one ``tcn_chunk`` launch per tick of
 up to ``t_chunk`` samples), the paper's KWS deployment.  Use the service
@@ -18,15 +32,129 @@ naming the protocol call to use.
 from __future__ import annotations
 
 import warnings
+from dataclasses import dataclass
 
 import numpy as np
 
+from repro_torch.sessions.lm import LMSessionService
 from repro_torch.sessions.service import StreamSessionService
 
 
 def _deprecated(old: str, new: str) -> None:
     warnings.warn(f"{old} is deprecated; use {new} (the SessionService "
                   f"protocol surface)", DeprecationWarning, stacklevel=3)
+
+
+@dataclass
+class ServeConfig:
+    max_batch: int = 8
+    seq_cap: int = 512
+    mode: str = "throughput"  # throughput | low-power (paper's dual mode)
+    decode_chunk: int = 16    # token-chunk bucket cap per dispatch
+    max_sessions: int | None = None  # None: == batch (no oversubscription)
+    prefill_chunk: int = 64   # chunked prefill cap (0 = scan prefill)
+    speculative: int = 0      # draft length K (0 = plain greedy decode)
+    spec_verify: str = "scan"  # scan (exact) | parallel (throughput)
+
+    def effective_batch(self):
+        return self.max_batch if self.mode == "throughput" \
+            else max(1, self.max_batch // 4)
+
+
+class LMServer:
+    """Historical add_request/step/outputs/finish surface over the LM
+    session service, on the bundle's device.  One ``step()`` greedily
+    decodes one token for every live request; a request's first step also
+    consumes its pending prompt token.  ``service_kw`` passes further
+    ``LMSessionService`` options (``paged``, ``block_len``, ``n_blocks``,
+    ``metrics``, ``tracer``, ``device_counters``)."""
+
+    def __init__(self, bundle, params, cfg: ServeConfig, **service_kw):
+        if cfg.speculative:
+            raise NotImplementedError(
+                f"ServeConfig(speculative={cfg.speculative}): speculative "
+                "decoding (sessions/spec.py) is not ported yet; use "
+                "speculative=0")
+        self.bundle = bundle
+        self.cfg = cfg
+        B = cfg.effective_batch()
+        self.service = LMSessionService(
+            bundle, params, n_slots=B, seq_cap=cfg.seq_cap,
+            t_chunk=cfg.decode_chunk, prefill_chunk=cfg.prefill_chunk,
+            max_sessions=B if cfg.max_sessions is None else cfg.max_sessions,
+            **service_kw)
+
+    # historical mirrors -----------------------------------------------------
+    @property
+    def sched(self):
+        return self.service.sched
+
+    @property
+    def outputs(self) -> dict[int, list[int]]:
+        return self.service.outputs
+
+    @property
+    def pos(self) -> np.ndarray:
+        """Per-slot int32 positions (0 for free slots)."""
+        return self.service.slot_pos
+
+    # protocol surface (sessions.SessionService, by delegation) --------------
+    @property
+    def n_slots(self) -> int:
+        return self.service.n_slots
+
+    def open_session(self, prompt) -> int:
+        """Admit a request.  With the default ``max_sessions`` (== batch)
+        a full grid raises AdmissionError (a RuntimeError); with a larger
+        cap the LRU idle request is parked to host memory instead and
+        resumes bit-identically."""
+        return self.service.open_session(prompt)
+
+    def push(self, work: dict[int, int]) -> dict[int, list[int]]:
+        """{sid: token budget} -> {sid: new tokens} (protocol hot path)."""
+        return self.service.push(work)
+
+    def park(self, sid: int) -> None:
+        self.service.park(sid)
+
+    def resume(self, sid: int) -> None:
+        self.service.resume(sid)
+
+    def close(self, sid: int) -> None:
+        self.service.close(sid)
+
+    def poll(self, sid: int) -> dict:
+        return self.service.poll(sid)
+
+    def enroll(self, sid: int, shots, **kwargs) -> int:
+        return self.service.enroll(sid, shots, **kwargs)
+
+    def stats(self) -> dict:
+        return self.service.stats()
+
+    def metrics(self) -> dict:
+        return self.service.metrics()
+
+    # deprecation shims (historical spellings) -------------------------------
+    def add_request(self, prompt) -> int:
+        _deprecated("LMServer.add_request(prompt)",
+                    "LMServer.open_session(prompt)")
+        return self.open_session(prompt)
+
+    def finish(self, rid: int):
+        _deprecated("LMServer.finish(rid)", "LMServer.close(rid)")
+        self.close(rid)
+
+    def step(self, n: int = 1):
+        """Advance every live request, bound and parked, by ``n`` greedy
+        tokens, in waves of at most ``n_slots`` requests (a wave's binds
+        may park the previous wave's LRU members; every request still
+        gains exactly n tokens)."""
+        live = [sid for sid, s in sorted(self.service.sessions.items())
+                if not s.done]
+        for i in range(0, len(live), self.service.n_slots):
+            self.service.decode(
+                {sid: n for sid in live[i:i + self.service.n_slots]})
 
 
 class TCNStreamServer:

@@ -1,9 +1,12 @@
-"""Streaming TCN sessions over a fixed slot grid (the port of
-``repro/sessions``, TCN half): state.py, tenancy.py (dense banks),
-paging.py (the block allocator), bankpool.py (paged banks), rehearsal.py
-(the u4 replay buffer), scheduler.py, service.py.
+"""Sessions over a fixed slot grid (the port of ``repro/sessions``
+without spec.py): state.py, tenancy.py (dense banks), paging.py (the
+block allocator and the LM prefix registry), bankpool.py (paged banks),
+rehearsal.py (the u4 replay buffer), scheduler.py, service.py (the TCN
+``StreamSessionService``) and lm.py (``LMSessionService``, KV-cache
+serving).
 
-``StreamSessionService`` conforms to the structural ``SessionService``
+``StreamSessionService`` and ``LMSessionService`` conform to the
+structural ``SessionService``
 protocol defined here (open_session / push / enroll / park / resume /
 close / poll / metrics / stats); the serving plane (serving/plane.py)
 programs against the protocol only.  ``stats()`` always holds the
@@ -14,7 +17,14 @@ both tuples equal the reference's (tests/test_torch_protocol.py).
 from typing import Any, Protocol, runtime_checkable
 
 from repro_torch.sessions.bankpool import PagedBankPool, paged_bank_fc
-from repro_torch.sessions.paging import NULL_BLOCK, BlockPool, PoolExhausted
+from repro_torch.sessions.lm import LMSessionService, pow2_chunks
+from repro_torch.sessions.paging import (
+    NULL_BLOCK,
+    BlockPool,
+    PoolExhausted,
+    PrefixCache,
+    prefix_keys,
+)
 from repro_torch.sessions.rehearsal import RehearsalBuffer
 from repro_torch.sessions.scheduler import AdmissionError, CapacityError, SlotScheduler
 from repro_torch.sessions.service import (
@@ -79,7 +89,8 @@ class SessionService(Protocol):
     """Structural protocol for slot-grid session services.
 
     ``push`` is the ragged hot path: a dict keyed by session id whose
-    values are service-specific work (TCN: audio chunks); absent sessions
+    values are service-specific work (TCN: audio chunks; LM: a token
+    budget); absent sessions
     stay frozen, so how pushes are grouped into calls never changes what
     any one session computes (the contract the serving plane's batching
     builds on)."""
@@ -100,7 +111,8 @@ class SessionService(Protocol):
 __all__ = [
     "SessionService", "STATS_SCHEMA", "METRICS_SCHEMA",
     "PagedBankPool", "paged_bank_fc", "NULL_BLOCK", "BlockPool",
-    "PoolExhausted", "RehearsalBuffer", "AdmissionError", "CapacityError",
+    "PoolExhausted", "PrefixCache", "prefix_keys", "LMSessionService",
+    "pow2_chunks", "RehearsalBuffer", "AdmissionError", "CapacityError",
     "SlotScheduler", "NO_TENANT", "SessionRecord", "SlotGridService",
     "StreamSessionService", "decode_parked", "grid_init", "grid_scan",
     "grid_step", "lengths_to_valid", "make_grid_fused", "pack_slot",

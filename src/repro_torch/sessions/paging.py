@@ -1,9 +1,10 @@
-"""Block-pool allocator for paged slot memory.
+"""Block-pool allocator for paged slot memory, and the LM prefix registry.
 
-The port of ``repro/sessions/paging.py``, the part the paged tenant banks
-use (``prefix_keys`` and ``PrefixCache`` serve the LM path and are not
-ported yet).  Host-side bookkeeping only: a free list and per-block
-refcounts over usable block ids ``1..n_blocks``.
+The port of ``repro/sessions/paging.py``.  Host-side bookkeeping only: a
+free list and per-block refcounts over usable block ids ``1..n_blocks``
+(the paged tenant banks and the paged LM KV cache), and ``PrefixCache``,
+the exact-prefix registry that lets LM sessions with a common prompt
+prefix share its full KV blocks copy-on-write.
 
   * Block id 0 is the reserved NULL block.  It is never allocated and never
     read at a live position; masked lanes and unbound slots point at it, so
@@ -19,6 +20,8 @@ live-session admission control.
 """
 
 from __future__ import annotations
+
+from collections import OrderedDict
 
 from repro_torch.sessions.scheduler import AdmissionError
 
@@ -120,3 +123,70 @@ class BlockPool:
         if shared != self._n_shared:
             raise AssertionError(
                 f"shared counter {self._n_shared} != recount {shared}")
+
+
+def prefix_keys(tokens, block_len: int) -> list[tuple[int, ...]]:
+    """Chain keys for every FULL block of ``tokens``: key ``i`` is the
+    exact tuple of all tokens up to and including block ``i`` (prefix
+    chains are content-addressed without hash-collision risk)."""
+    toks = [int(t) for t in tokens]
+    n_full = len(toks) // block_len
+    return [tuple(toks[: (i + 1) * block_len]) for i in range(n_full)]
+
+
+class PrefixCache:
+    """Exact-prefix registry: full prompt blocks -> physical block ids.
+
+    Each entry pins its block with one registry reference, so a donor
+    session can park or close and later sessions still share the bytes.
+    ``match`` returns the longest chain of hits (one reference taken per
+    hit, for the caller); ``release_lru`` drops the least recently matched
+    entry so an exhausted pool can reclaim registry-only blocks."""
+
+    def __init__(self, pool: BlockPool, max_entries: int | None = None):
+        self.pool = pool
+        self.max_entries = max_entries
+        self._map: OrderedDict[tuple[int, ...], int] = OrderedDict()
+        self.hits = 0
+        self.misses = 0
+
+    def __len__(self) -> int:
+        return len(self._map)
+
+    def match(self, keys: list[tuple[int, ...]]) -> list[int]:
+        """Longest-prefix match; the returned block ids carry one new
+        reference each, owned by the caller."""
+        out: list[int] = []
+        for key in keys:
+            bid = self._map.get(key)
+            if bid is None:
+                self.misses += 1
+                break
+            self._map.move_to_end(key)
+            out.append(self.pool.ref(bid))
+            self.hits += 1
+        return out
+
+    def insert(self, key: tuple[int, ...], bid: int) -> None:
+        """Register a full block (no-op if the chain key is known)."""
+        if key in self._map:
+            self._map.move_to_end(key)
+            return
+        self.pool.ref(bid)
+        self._map[key] = bid
+        if self.max_entries is not None and len(self._map) > self.max_entries:
+            self.release_lru()
+
+    def release_lru(self) -> bool:
+        """Evict the least recently matched entry, dropping its registry
+        reference (the block is freed iff no session still shares it).
+        Returns False when the registry is empty."""
+        if not self._map:
+            return False
+        _, bid = self._map.popitem(last=False)
+        self.pool.free(bid)
+        return True
+
+    def clear(self) -> None:
+        while self.release_lru():
+            pass

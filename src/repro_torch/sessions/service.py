@@ -1,6 +1,7 @@
 """Request-loop façades over the streaming slot grid.
 
-The port of ``repro/sessions/service.py``, TCN half:
+The port of ``repro/sessions/service.py`` (the LM service, which builds on
+``SlotGridService``, is sessions/lm.py):
 
 ``SlotGridService`` is the service-agnostic core: a fixed slot grid,
 admission control and LRU/cost-aware eviction (sessions/scheduler), a
@@ -433,7 +434,12 @@ class SlotGridService:
             self._park_store(sid, parked)
             restored.append(sid)
         self._next_sid = max(self._next_sid, int(meta.get("next_sid", 0)))
+        self._post_restore(restored, meta)
         return restored
+
+    def _post_restore(self, restored: list[int], meta: dict) -> None:
+        """Hook: runs once after a successful restore, with the spill meta
+        (so a subclass never re-reads the file)."""
 
     # -- live handoff / crash recovery --------------------------------------
     # The serving plane's drain, recovery, stealing and spill journal rest
@@ -464,7 +470,11 @@ class SlotGridService:
         self._park_take(sid)
         self.sched.release(sid)
         self.sessions.pop(sid)
+        self._on_detach(sid)
         return blob, meta
+
+    def _on_detach(self, sid: int) -> None:
+        """Hook: the session just left for another worker (not a close)."""
 
     def adopt_session(self, blob: dict, meta: dict) -> int:
         """Admit a session exported by a peer under a fresh local sid
@@ -482,10 +492,14 @@ class SlotGridService:
         self.sched.admit(sid)
         self.sessions[sid] = self._restore_session(meta)
         self._park_store(sid, blob)
+        self._on_adopt(sid, meta)
         return sid
 
     def _adopt_validate(self, blob: dict, meta: dict) -> None:
         """Hook: refuse an incompatible blob before any change."""
+
+    def _on_adopt(self, sid: int, meta: dict) -> None:
+        """Hook: runs once after a successful single-session adoption."""
 
     # -- tenant-state handoff (tenant-aware services override) --------------
     def live_tenants(self) -> list:

@@ -1,4 +1,5 @@
-"""Structure-of-arrays session state for the streaming slot grid (TCN half).
+"""Structure-of-arrays session state: the TCN slot grid, and the column
+and pool helpers of the LM KV cache.
 
 The port of ``repro/sessions/state.py``: a slot grid stacks ``n_slots``
 single-session streaming states leaf-wise — rings (S, n, c), step counters
@@ -15,6 +16,21 @@ grid are stored as packed nibbles; exactness is checked per leaf at pack
 time and an off-grid leaf (block 0's raw-input ring) stays fp32, so
 park/resume is bit-exact either way.  ``unpack_slot`` and ``reset_slot``
 write the slot's column in place (the grid is owned by one service).
+
+The LM half (``src/repro/sessions/state.py:249-456``) generalizes the
+parking lot to trees whose per-session axis is not leading: a KV cache
+stacks sessions on axis 1 of (L, B, S, Hkv, Dh) leaves.  ``leaf_axes``
+finds each leaf's session and sequence axes by diffing two shape trees
+(``bundle.cache_specs`` on the ``meta`` device, as the reference diffs
+``eval_shape``); ``pack_column`` truncates a column to the session's live
+positions (parked bytes are O(pos)), ``unpack_column`` zero-extends it
+back.  The paged layout replaces each seq-axis leaf's (..., B, S, ...)
+storage with a shared (..., n_blocks + 1, block_len, ...) pool read
+through per-lane int32 block tables (block 0 is the NULL block):
+``gather_column`` rebuilds the exact dense column of a table row, so the
+decode programs run the dense code on it.  Host copies of bf16 leaves are
+their bits (``utils/host.py``).  Device writes are in place.  The
+reference's ``column_pspecs`` has no meaning on one card.
 """
 
 from __future__ import annotations
@@ -30,6 +46,7 @@ from repro_torch.core.streaming import (
     stream_step,
 )
 from repro_torch.models.config import ArchConfig
+from repro_torch.utils.host import from_host, to_host
 
 
 def grid_init(cfg: ArchConfig, n_slots: int, device="cuda") -> dict:
@@ -200,3 +217,191 @@ def slot_state_bytes(states: dict) -> int:
     leaves = list(_leaves(states))
     n_slots = leaves[0].shape[0]
     return sum(a.numel() * a.element_size() for a in leaves) // n_slots
+
+
+# ---------------------------------------------------------------------------
+# Generalized columns: per-leaf session axes (LM KV caches)
+# ---------------------------------------------------------------------------
+
+def map_tree(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts, the other trees indexed by
+    the first one's keys (a missing key raises ``KeyError``)."""
+    if isinstance(tree, dict):
+        return {k: map_tree(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def leaf_axes(make_a, make_b):
+    """Per-leaf axis tree: the first axis whose extent differs between the
+    trees ``make_a()`` and ``make_b()`` build (-1 where none does).  Build
+    them with one structural parameter changed (B vs B + 1 for the session
+    axis, S vs S + 1 for the sequence axis), on the ``meta`` device."""
+    def axis_of(a, b):
+        for i, (x, y) in enumerate(zip(a.shape, b.shape)):
+            if x != y:
+                return i
+        return -1
+
+    return map_tree(axis_of, make_a(), make_b())
+
+
+def _as_leaf(p, like: torch.Tensor) -> torch.Tensor:
+    """A parked host array as a tensor of ``like``'s dtype and device: bf16
+    bits and other same-width views are reinterpreted, not cast (an npz
+    round trip may hand back raw bytes)."""
+    t = from_host(p)
+    if t.dtype != like.dtype and t.element_size() == like.element_size():
+        t = t.view(like.dtype)
+    return t.to(like.device, like.dtype)
+
+
+def pack_column(tree, axes, slot: int, *, trunc_axes=None,
+                trunc_len=None) -> dict:
+    """Copy one session's column of a SoA tree to host memory.  With
+    ``trunc_axes``/``trunc_len``, leaves with a sequence axis keep only
+    their first ``trunc_len`` positions (a KV column is only written up to
+    the session's position, so a parked blob costs O(pos) bytes)."""
+    def enc(a, ax, tax):
+        if ax < 0:
+            raise ValueError("pack_column: leaf without a session axis")
+        col = a.select(ax, slot)
+        if tax >= 0 and trunc_len is not None:
+            col = col.narrow(tax - (tax > ax), 0, int(trunc_len))
+        return to_host(col)
+
+    if trunc_axes is None:
+        trunc_axes = map_tree(lambda _: -1, axes)
+    return map_tree(enc, tree, axes, trunc_axes)
+
+
+def unpack_column(tree, axes, slot: int, parked: dict) -> dict:
+    """Restore a ``pack_column`` blob into ``slot`` (any free slot works),
+    in place.  A truncated sequence axis is zero-extended: positions past
+    the parked length were never written by the per-lane decode, so zero
+    is the uninterrupted run's content."""
+    def put(a, ax, p):
+        col = a.select(ax, slot)
+        t = _as_leaf(p, a)
+        if tuple(t.shape) != tuple(col.shape):
+            col.zero_()
+            col = col[tuple(slice(0, n) for n in t.shape)]
+        col.copy_(t)
+        return a
+
+    return map_tree(put, tree, axes, parked)
+
+
+def zero_from_column(tree, axes, seq_axes, slot: int, start) -> dict:
+    """Zero one session's sequence rows at positions >= ``start`` (an int
+    or a 0-d tensor), in place: the position-range rollback that makes a
+    column canonical, bit-identical to what park (truncation) + resume
+    (zero-extension) would rebuild.  Leaves without a sequence axis are
+    untouched."""
+    def scrub(a, bax, sax):
+        if sax < 0:
+            return a
+        col = a.select(bax, slot)
+        t = sax - (sax > bax)
+        pos = torch.arange(col.shape[t], device=a.device)
+        keep = (pos < start).reshape((1,) * t + (-1,)
+                                     + (1,) * (col.dim() - t - 1))
+        col.copy_(torch.where(keep, col, torch.zeros((), dtype=a.dtype,
+                                                     device=a.device)))
+        return a
+
+    return map_tree(scrub, tree, axes, seq_axes)
+
+
+# ---------------------------------------------------------------------------
+# Paged columns: shared block pools + per-lane block tables
+# ---------------------------------------------------------------------------
+#
+# Only defined for leaves whose sequence axis follows the session axis
+# (sax == bax + 1, true of every KV cache of models/build.py): swapping
+# (B, S) -> (n_blocks, block_len) keeps every other axis in place, so a
+# gather + reshape rebuilds the exact dense column.
+
+PAGED_MARKER = "pv"  # paged park-blob marker: np.int32 [block_len, n_keep]
+
+
+def paged_flags(batch_axes, seq_axes):
+    """Per-leaf bool tree: True where the leaf pages (has a seq axis)."""
+    return map_tree(lambda bax, sax: sax >= 0, batch_axes, seq_axes)
+
+
+def make_pools(specs, batch_axes, seq_axes, extent: int, block_len: int,
+               device) -> dict:
+    """Pool tree from a cache shape tree (``cache_specs``, on ``meta``):
+    every seq-axis leaf becomes a zeroed shared pool of ``extent``
+    physical blocks of ``block_len`` rows (extent counts the NULL block)
+    on ``device``; recurrent leaves get their dense zeroed storage."""
+    def mk(a, bax, sax):
+        shape = list(a.shape)
+        if sax >= 0:
+            if sax != bax + 1:
+                raise ValueError(
+                    f"paged layout needs the sequence axis adjacent to the "
+                    f"session axis (got bax={bax}, sax={sax})")
+            if a.shape[sax] % block_len:
+                raise ValueError(f"seq_cap {a.shape[sax]} not divisible by "
+                                 f"block_len {block_len}")
+            shape[bax], shape[sax] = extent, block_len
+        return torch.zeros(shape, dtype=a.dtype, device=device)
+
+    return map_tree(mk, specs, batch_axes, seq_axes)
+
+
+def gather_column(pool, rows, bax: int):
+    """Dense column view of a pool through block-table ``rows``: (nb,)
+    for one lane -> (..., nb * block_len, ...), or (B, nb) for every lane
+    -> (..., B, nb * block_len, ...), merged at axis ``bax``.  Bit-identical
+    to the dense layout's column at every live position."""
+    g = pool.index_select(bax, rows.reshape(-1).long())
+    bl = pool.shape[bax + 1]
+    lead = tuple(rows.shape[:-1])
+    return g.reshape(pool.shape[:bax] + lead + (rows.shape[-1] * bl,)
+                     + pool.shape[bax + 2:])
+
+
+def scatter_rows(pool, col, rows, positions, bax: int) -> None:
+    """Write dense-column rows back into the pool, in place.  ``col``:
+    (..., B, S, ...) columns at axis ``bax`` (as ``gather_column`` of
+    ``rows`` (B, nb) gives them); ``positions`` (B, n) the rows of each
+    lane to write, through its table row (unowned blocks map to the NULL
+    block, which absorbs them)."""
+    bl = pool.shape[bax + 1]
+    positions = positions.long()
+    blk = torch.gather(rows.long(), 1, positions // bl)
+    lanes = torch.arange(positions.shape[0], device=pool.device)[:, None]
+    lead = (slice(None),) * bax
+    pool[lead + (blk, positions % bl)] = col[lead + (lanes, positions)]
+
+
+def split_blocks(col, bax: int, block_len: int):
+    """Inverse of the ``gather_column`` merge: (..., S, ...) ->
+    (..., S // block_len, block_len, ...) at axis ``bax``."""
+    nb = col.shape[bax] // block_len
+    return col.reshape(col.shape[:bax] + (nb, block_len)
+                       + col.shape[bax + 1:])
+
+
+def pack_blocks(pool, bids, bax: int) -> np.ndarray:
+    """Copy a session's owned blocks to host memory, (..., len(bids),
+    block_len, ...): the paged form of pack_column's O(pos) truncation."""
+    idx = torch.as_tensor(np.asarray(bids, np.int64), device=pool.device)
+    return to_host(pool.index_select(bax, idx))
+
+
+def unpack_blocks(pool, bids, blocks, bax: int):
+    """Scatter a ``pack_blocks`` blob into freshly allocated blocks of the
+    pool (any free blocks work), in place."""
+    idx = torch.as_tensor(np.asarray(bids, np.int64), device=pool.device)
+    pool.index_copy_(bax, idx, _as_leaf(blocks, pool))
+    return pool
+
+
+def copy_block(pool, src: int, dst: int, bax: int):
+    """Device copy of one block (the copy-on-write clone), in place."""
+    pool.select(bax, dst).copy_(pool.select(bax, src))
+    return pool

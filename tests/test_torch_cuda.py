@@ -8,8 +8,11 @@ them).  The continual-learning service (paged and dense tenant banks,
 park/unpark, rehearsal) is held bit for bit between its two bank layouts
 at the CL demo's widths, and the serving layer at chameleon-tcn's width:
 the ServingPlane through a crash and a drain, spill/restore, and
-TCNStreamServer, each bit for bit against a synchronous control.
-Marked ``cuda``; every test skips when no card is present.  This file
+TCNStreamServer, each bit for bit against a synchronous control.  The
+dense LM family (olmo-1b and qwen2.5-32b cut narrow): t_chunk 16 == 1,
+paged == dense, park/resume and spill/restore bit for bit, the chunk
+schedule at its contract, and the baked bf16 tree equal to the per-use
+cast.  Marked ``cuda``; every test skips when no card is present.  This file
 imports no JAX, so it runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -778,3 +781,127 @@ def test_served_trained_stream_equals_full_forward(dev):
     full = make_fused_forward(cfg, quantize=True, device=dev)(
         fused, torch.from_numpy(x).to(dev))[0]
     assert torch.equal(last, full.cpu())
+
+
+# ---------------------------------------------------------------------------
+# the dense LM family on the card
+# ---------------------------------------------------------------------------
+
+def _lm(dev, name="olmo-1b", **over):
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_bundle
+
+    cfg = get_config(name).smoke().replace(
+        n_layers=2, d_model=256, d_ff=512, vocab_size=512, n_heads=4,
+        n_kv_heads=1 if name == "qwen2.5-32b" else 4, head_dim=64, **over)
+    bundle = build_bundle(cfg, dev)
+    return bundle, bundle.init(torch.Generator(device=dev).manual_seed(0))
+
+
+def _lm_svc(bundle, params, **kw):
+    from repro_torch.sessions import LMSessionService
+
+    return LMSessionService(bundle, params, **{
+        "n_slots": 4, "seq_cap": 128, "t_chunk": 16, "max_sessions": 16,
+        **kw})
+
+
+def _lm_prompts(n=4, vocab=512, seed=1):
+    rng = np.random.default_rng(seed)
+    shared = rng.integers(0, vocab, 32)
+    return [np.concatenate([shared, rng.integers(0, vocab, 5 + 7 * i)])
+            .astype(np.int32) if i < 2 else
+            rng.integers(0, vocab, 9 + 13 * i).astype(np.int32)
+            for i in range(n)]
+
+
+def _live_bits(svc, sids):
+    from repro_torch.convert import numpy_bits
+    from repro_torch.utils.trees import tree_leaves
+
+    return [x for s in sids for x in tree_leaves(numpy_bits(
+        svc.live_column(s)))]
+
+
+@pytest.mark.parametrize("name", ["olmo-1b", "qwen2.5-32b"])
+def test_lm_invariants_bit_exact_on_card(dev, name):
+    """t_chunk 16 == 1, paged == dense (prefix blocks shared copy-on-write)
+    and park/resume through evictions, tokens and KV rows bit for bit."""
+    bundle, params = _lm(dev, name)
+    prompts = _lm_prompts()
+    runs = {}
+    for key, kw in (("dense", {}), ("t1", {"t_chunk": 1}),
+                    ("paged", {"paged": True})):
+        svc = _lm_svc(bundle, params, **kw)
+        sids = [svc.open_session(p) for p in prompts]
+        out = svc.decode({s: 24 for s in sids})
+        runs[key] = ([out[s] for s in sids], _live_bits(svc, sids), svc)
+    assert runs["paged"][2].pool.n_shared >= 2
+    for key in ("t1", "paged"):
+        assert runs[key][0] == runs["dense"][0], key
+        assert all(np.array_equal(a, b) for a, b in
+                   zip(runs[key][1], runs["dense"][1])), key
+    # 8 sessions on 4 slots, decoded in two waves of 12: every session
+    # parks and resumes; its tokens equal the never-parked run's
+    for paged in (False, True):
+        svc = _lm_svc(bundle, params, paged=paged, max_sessions=8)
+        sids = [svc.open_session(p) for p in prompts + prompts]
+        got = {s: [] for s in sids}
+        for _ in range(2):
+            for wave in (sids[:4], sids[4:]):
+                for s, t in svc.decode({s: 12 for s in wave}).items():
+                    got[s] += t
+        assert svc.stats()["evictions"] >= 8
+        assert [got[s] for s in sids] == runs["dense"][0] * 2
+
+
+def test_lm_baked_tree_equals_per_use_cast_on_card(dev):
+    from repro_torch.models.transformer import bake_lm_params
+
+    bundle, params = _lm(dev, "qwen2.5-32b")
+    baked = bake_lm_params(params, bundle.cfg)
+    for i in range(bundle.cfg.n_layers):
+        for key, w in params["layers"]["mlp"].items():
+            assert torch.equal(baked["layers"][i]["mlp"][key],
+                               w[i].to(torch.bfloat16))
+    tok = torch.arange(4, dtype=torch.int32, device=dev)[:, None]
+    pos = torch.tensor([0, 3, 5, 9], dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        a, ca = bundle.decode_fn(params, bundle.empty_cache(4, 16),
+                                 {"tokens": tok, "pos": pos})
+        b, cb = bundle.decode_fn(baked, bundle.empty_cache(4, 16),
+                                 {"tokens": tok, "pos": pos})
+    assert torch.equal(a, b)
+    assert torch.equal(ca["dense"]["k"], cb["dense"]["k"])
+    assert bool(torch.isfinite(a).all())
+
+
+def test_lm_spill_restore_and_chunk_schedule_on_card(dev, tmp_path):
+    """A spilled session resumes in a fresh service bit for bit; 64-token
+    prefill chunks against token-at-a-time prefill give the same greedy
+    tokens and KV within one bf16 ulp."""
+    bundle, params = _lm(dev)
+    prompts = _lm_prompts()
+    ctl = _lm_svc(bundle, params)
+    c = [ctl.open_session(p) for p in prompts]
+    want = ctl.decode({s: 20 for s in c})
+    svc = _lm_svc(bundle, params)
+    s = [svc.open_session(p) for p in prompts]
+    first = svc.decode({x: 8 for x in s})
+    path = str(tmp_path / "lm.npz")
+    svc.spill_parking(path, include_bound=True)
+    fresh = _lm_svc(bundle, params)
+    assert fresh.restore_parking(path) == s
+    rest = fresh.decode({x: 12 for x in s})
+    assert [first[x] + rest[x] for x in s] == [want[x] for x in c]
+    scan = _lm_svc(bundle, params, prefill_chunk=0)
+    z = [scan.open_session(p) for p in prompts]
+    got = scan.decode({x: 20 for x in z})
+    assert [got[x] for x in z] == [want[x] for x in c]
+
+    def ordered(u):
+        v = u.astype(np.int32)
+        return np.where(v >= 0x8000, 0x8000 - v, v)
+
+    for a, b in zip(_live_bits(scan, z), _live_bits(ctl, c)):
+        assert int(np.abs(ordered(a) - ordered(b)).max()) <= 1

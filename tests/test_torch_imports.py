@@ -40,7 +40,9 @@ def test_port_files_found():
             "plane.py", "faults.py", "engine.py", "store.py", "metrics.py",
             "trace.py", "device.py", "runtime.py", "synthetic.py",
             "episodic.py", "compress.py", "optim.py", "trainer.py",
-            "trees.py"} <= names
+            "trees.py", "layers.py", "transformer.py", "params.py",
+            "lm.py", "host.py", "shapes.py", "olmo_1b.py",
+            "qwen25_32b.py"} <= names
 
 
 @pytest.mark.parametrize("module", ["repro_torch.kernels.dispatch",
@@ -55,7 +57,17 @@ def test_port_files_found():
                                     "repro_torch.data",
                                     "repro_torch.training",
                                     "repro_torch.training.episodic",
-                                    "repro_torch.quant.compress"])
+                                    "repro_torch.quant.compress",
+                                    "repro_torch.models.layers",
+                                    "repro_torch.models.transformer",
+                                    "repro_torch.models.params",
+                                    "repro_torch.models",
+                                    "repro_torch.sessions.lm",
+                                    "repro_torch.sessions",
+                                    "repro_torch.serving.engine",
+                                    "repro_torch.utils.host",
+                                    "repro_torch.convert",
+                                    "repro_torch.configs.shapes"])
 def test_module_imports_first(module):
     """Each of these imports in a fresh interpreter before anything else of
     the port (the configs import the models, which import dispatch; the
@@ -86,14 +98,18 @@ def test_default_device_entry_points_raise_without_a_card():
         make_log2_matmul_op,
         make_proto_extract_op,
     )
-    from repro_torch.models import build_tcn_bundle
+    from repro_torch.models import build_bundle, build_tcn_bundle
+    from repro_torch.models.params import init_params
     from repro_torch.models.tcn import make_fused_forward
     from repro_torch.data import EpisodicSampler, GlyphClasses
     from repro_torch.sessions import PagedBankPool, grid_init
     from repro_torch.training.episodic import fsl_episode
 
     cfg = get_config("chameleon-tcn")
+    lm = build_bundle(get_config("olmo-1b").smoke(), "cpu")
     for entry in (lambda: build_tcn_bundle(cfg),
+                  lambda: build_bundle(get_config("olmo-1b")),
+                  lambda: init_params(lm.param_defs, torch.Generator()),
                   lambda: make_fused_forward(cfg),
                   lambda: grid_init(cfg, 2),
                   lambda: PagedBankPool(4, 2, 8, 2),
@@ -104,3 +120,4 @@ def test_default_device_entry_points_raise_without_a_card():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             entry()
     assert build_tcn_bundle(cfg, "cpu").device.type == "cpu"
+    assert lm.device.type == "cpu"
