@@ -1,10 +1,11 @@
 """Model bundles: one functional API per architecture family.
 
-The port of ``repro/models/build.py`` for the ``tcn`` family and the
-``dense`` LM family (olmo-1b, stablelm-1.6b, qwen2.5-32b, command-r-35b);
-``build_bundle`` raises ``NotImplementedError`` for the families later
-slices bring, so a moe/rwkv/hybrid/vlm/audio config never builds
-something else.
+The port of ``repro/models/build.py`` for the ``tcn`` family, the
+``dense`` LM family (olmo-1b, stablelm-1.6b, qwen2.5-32b, command-r-35b)
+and the ``moe`` family (deepseek-v2-lite-16b with MLA attention,
+moonshot-v1-16b-a3b with GQA); ``build_bundle`` raises
+``NotImplementedError`` for the families later slices bring, so a
+rwkv/hybrid/vlm/audio config never builds something else.
 
 A ``Bundle`` carries the config, the param defs, the device its tensors
 live on and the functions:
@@ -18,7 +19,10 @@ live on and the functions:
     (B, V), cache)``, ``step_fn`` (the same at (B, S), logits at every
     position: the chunked-prefill step), ``empty_cache(B, S)`` and
     ``cache_specs(B, S)`` (the same shapes on the ``meta`` device), and
-    ``embed_fn`` (mean final hidden state).  Cached calls write the cache
+    ``embed_fn`` (mean final hidden state).  The cache is the reference's
+    tree: {"dense": …, "moe": …} for the two layer stacks (a stack the
+    config lacks is absent), each {"k", "v"} (GQA) or {"c_kv", "k_rope"}
+    (MLA).  Cached calls write the cache
     in place and return it; ``pos`` is an int, or a tensor 0-d or per
     lane (B,).  LM training (``loss_fn``) comes with a later slice.
 """
@@ -41,6 +45,7 @@ from repro_torch.models.transformer import (
     logits_all,
     logits_last,
     model_param_defs,
+    stack_sizes,
 )
 
 
@@ -108,15 +113,35 @@ def build_tcn_bundle(cfg: ArchConfig, device="cuda") -> Bundle:
 
 
 # ---------------------------------------------------------------------------
-# Decoder-only LM bundle (dense family)
+# Decoder-only LM bundle (dense and MoE families)
 # ---------------------------------------------------------------------------
+
+def _kv_cache(cfg, L, B, S, dtype, device) -> dict:
+    shape = (L, B, S, cfg.n_kv_heads, cfg.dh)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _mla_cache(cfg, L, B, S, dtype, device) -> dict:
+    return {"c_kv": torch.zeros((L, B, S, cfg.kv_lora_rank), dtype=dtype,
+                                device=device),
+            "k_rope": torch.zeros((L, B, S, 1, cfg.qk_rope_dim),
+                                  dtype=dtype, device=device)}
+
 
 def make_empty_cache(cfg: ArchConfig, B: int, S: int, dtype=torch.bfloat16,
                      device="cuda") -> dict:
-    """Zeroed KV cache: {"dense": {"k", "v"}} of (L, B, S, Hkv, Dh)."""
-    shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.dh)
-    return {"dense": {"k": torch.zeros(shape, dtype=dtype, device=device),
-                      "v": torch.zeros(shape, dtype=dtype, device=device)}}
+    """Zeroed cache: {"dense": …, "moe": …} per layer stack, each GQA's
+    {"k", "v"} (L, B, S, Hkv, Dh) or MLA's {"c_kv" (L, B, S, r),
+    "k_rope" (L, B, S, 1, dr)}."""
+    per = _mla_cache if cfg.use_mla else _kv_cache
+    n_moe, n_dense = stack_sizes(cfg)
+    out = {}
+    if n_dense:
+        out["dense"] = per(cfg, n_dense, B, S, dtype, device)
+    if n_moe:
+        out["moe"] = per(cfg, n_moe, B, S, dtype, device)
+    return out
 
 
 def _as_pos(pos, dev):
@@ -135,22 +160,22 @@ def build_lm_bundle(cfg: ArchConfig, device="cuda") -> Bundle:
     def prefill_fn(params, batch):
         x = embed_tokens(params, cfg, batch["tokens"])
         cache = make_empty_cache(cfg, x.shape[0], x.shape[1], adt, dev)
-        h = backbone(params, cfg, x, 0, cache)
+        h, _ = backbone(params, cfg, x, 0, cache)
         return logits_last(params, cfg, h), cache
 
     def step_fn(params, cache, batch):
         x = embed_tokens(params, cfg, batch["tokens"])
-        h = backbone(params, cfg, x, _as_pos(batch["pos"], dev), cache)
+        h, _ = backbone(params, cfg, x, _as_pos(batch["pos"], dev), cache)
         return logits_all(params, cfg, h), cache
 
     def decode_fn(params, cache, batch):
         x = embed_tokens(params, cfg, batch["tokens"])
-        h = backbone(params, cfg, x, _as_pos(batch["pos"], dev), cache)
+        h, _ = backbone(params, cfg, x, _as_pos(batch["pos"], dev), cache)
         return logits_last(params, cfg, h), cache
 
     def embed_fn(params, batch):
         x = embed_tokens(params, cfg, batch["tokens"])
-        return backbone(params, cfg, x, 0, None).mean(dim=1)
+        return backbone(params, cfg, x, 0, None)[0].mean(dim=1)
 
     def loss_fn(params, batch):
         raise NotImplementedError(
@@ -167,8 +192,6 @@ def build_lm_bundle(cfg: ArchConfig, device="cuda") -> Bundle:
 
 # the slice of the port that brings each family not built here
 _LATER = {
-    "moe": "the MoE/MLA slice (models/moe.py, mla_attn: deepseek-v2-lite, "
-           "moonshot)",
     "rwkv": "the recurrent-cache slice (models/rwkv.py)",
     "hybrid": "the recurrent-cache slice (models/ssm.py, the zamba hybrid)",
     "vlm": "the vlm/audio front-end and encoder-decoder slice",
@@ -179,7 +202,7 @@ _LATER = {
 def build_bundle(cfg: ArchConfig, device="cuda") -> Bundle:
     if cfg.family == "tcn":
         return build_tcn_bundle(cfg, device)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return build_lm_bundle(cfg, device)
     if cfg.family in _LATER:
         raise NotImplementedError(

@@ -1,20 +1,24 @@
-"""Decoder-only transformer assembly, dense family, forward only.
+"""Decoder-only transformer assembly, dense and MoE families, forward only.
 
-The port of ``repro/models/transformer.py`` without MoE, MLA and the
-encoder-decoder (later slices): param declarations in the reference's
-names, shapes and init kinds, GQA attention against an optional KV cache,
-the layer body (sequential or ``parallel_block`` residual), the layer
-stack, embedding and the LM-head logits.
+The port of ``repro/models/transformer.py`` without the encoder-decoder (a
+later slice): param declarations in the reference's names, shapes and init
+kinds, GQA and MLA (DeepSeek-V2 multi-head latent) attention against an
+optional cache, the layer body (sequential or ``parallel_block`` residual,
+a dense MLP or the MoE FFN of ``models/moe.py``), the two layer stacks
+(``layers``: the dense ones, then ``moe_layers``), embedding and the
+LM-head logits.
 
 The reference scans the stacked layer axis with ``jax.lax.scan``; here
 ``scan_layers`` loops over it (nothing is differentiated, so there are no
 remat groups).  A cache is a dict of (L, B, S_max, Hkv, Dh) tensors that
 the layers update IN PLACE (a cached call returns the same dict): the
 session layer owns its cache grid, and copying it per step would move the
-whole cache.  ``pos`` is a Python int (the uncached prefill, as in the
-reference) or a tensor, 0-d or per lane (B,): each lane writes its K/V
-rows at its own position and attends over its own length, which is how
-the session layer runs every slot at its own position in one call.  As
+whole cache.  MLA caches the compressed latent instead: {"c_kv" (L, B,
+S_max, r), "k_rope" (L, B, S_max, 1, dr)}.  ``pos`` is a Python int (the
+uncached prefill, as in the reference) or a tensor, 0-d or per lane
+(B,): each lane writes its K/V rows at its own position and attends over
+its own length, which is how the session layer runs every slot at its
+own position in one call.  As
 ``jax.lax.dynamic_update_slice`` does, a write that would run past the
 cache is moved back to end at its last row (only masked steps of a lane
 at ``seq_cap`` reach it; their rows are never read).
@@ -22,7 +26,9 @@ at ``seq_cap`` reach it; their rows are never read).
 ``bake_lm_params`` casts every leaf to the activation dtype once and
 splits the stacked layers into per-layer views: the reference casts each
 fp32 weight at every use, which is the same bits, and on the card would
-re-read the fp32 tree every step.
+re-read the fp32 tree every step.  The MoE router is the exception: the
+reference casts it to fp32 at each use, so it stays fp32 (a bf16 router
+would route otherwise).
 """
 
 from __future__ import annotations
@@ -32,11 +38,14 @@ import torch
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (
     MLP_FNS,
+    NEG_INF,
     apply_norm,
     apply_rope,
     attention,
+    rmsnorm,
     rope_angles,
 )
+from repro_torch.models.moe import moe_ffn, moe_param_defs
 from repro_torch.models.params import ParamDef, map_defs
 from repro_torch.utils.trees import tree_leaves, tree_map
 
@@ -61,6 +70,17 @@ def norm_param_defs(cfg: ArchConfig) -> dict:
 
 def attn_param_defs(cfg: ArchConfig) -> dict:
     D, H, Hkv, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.dh
+    if cfg.use_mla:
+        dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
+        dv, r = cfg.v_head_dim, cfg.kv_lora_rank
+        return {
+            "wq": ParamDef((D, H * (dn + dr)), ("embed", "heads")),
+            "w_dkv": ParamDef((D, r + dr), ("embed", None)),
+            "kv_norm": ParamDef((r,), (None,), init="ones"),
+            "w_ukv": ParamDef((r, H * (dn + dv)), (None, "heads")),
+            "wo": ParamDef((H * dv, D), ("heads", "embed"),
+                           scale=(H * dv) ** -0.5),
+        }
     defs = {
         "wq": ParamDef((D, H * Dh), ("embed", "heads")),
         "wk": ParamDef((D, Hkv * Dh), ("embed", "kv_heads")),
@@ -93,11 +113,11 @@ def mlp_param_defs(cfg: ArchConfig) -> dict:
     return defs
 
 
-def layer_param_defs(cfg: ArchConfig) -> dict:
+def layer_param_defs(cfg: ArchConfig, *, moe: bool = False) -> dict:
     defs = {"attn_norm": norm_param_defs(cfg), "attn": attn_param_defs(cfg)}
     if not cfg.parallel_block:
         defs["mlp_norm"] = norm_param_defs(cfg)
-    defs["mlp"] = mlp_param_defs(cfg)
+    defs["mlp"] = moe_param_defs(cfg) if moe else mlp_param_defs(cfg)
     return defs
 
 
@@ -108,17 +128,33 @@ def stack_defs(defs, n: int):
 
 
 def model_param_defs(cfg: ArchConfig) -> dict:
-    if cfg.family != "dense" or cfg.is_encdec or cfg.n_experts \
-            or cfg.use_mla:
+    if cfg.family not in ("dense", "moe") or cfg.is_encdec:
         raise NotImplementedError(
-            f"{cfg.name}: only the dense decoder-only family is ported")
+            f"{cfg.name}: only the dense and MoE decoder-only families are "
+            "ported")
     D, V = cfg.d_model, cfg.vocab_size
-    return {
+    defs = {
         "embed": ParamDef((V, D), ("vocab", "embed"), init="embed"),
         "final_norm": norm_param_defs(cfg),
         "lm_head": ParamDef((D, V), ("embed", "vocab")),
-        "layers": stack_defs(layer_param_defs(cfg), cfg.n_layers),
     }
+    n_moe, n_dense = stack_sizes(cfg)
+    if n_dense:
+        defs["layers"] = stack_defs(layer_param_defs(cfg), n_dense)
+    if n_moe:
+        defs["moe_layers"] = stack_defs(layer_param_defs(cfg, moe=True),
+                                        n_moe)
+    return defs
+
+
+def stack_sizes(cfg: ArchConfig) -> tuple[int, int]:
+    """(MoE layers, dense layers): the first ``n_dense_layers`` are dense
+    when the config has experts."""
+    n_moe = cfg.n_layers - cfg.n_dense_layers if cfg.n_experts else 0
+    return n_moe, cfg.n_layers - n_moe
+
+
+STACKS = (("layers", "dense", False), ("moe_layers", "moe", True))
 
 
 def unstack_layers(stacked) -> list:
@@ -127,17 +163,28 @@ def unstack_layers(stacked) -> list:
     return [tree_map(lambda a, i=i: a[i], stacked) for i in range(n)]
 
 
+def _bake(node, dtype, key=None):
+    if isinstance(node, dict):
+        return {k: _bake(v, dtype, k) for k, v in node.items()}
+    return node.float() if key == "router" else node.to(dtype)
+
+
 def bake_lm_params(params: dict, cfg: ArchConfig) -> dict:
     """The serving tree: every leaf cast once to the activation dtype
-    (bit-identical to the reference's cast at each use) and the stacked
-    layers as a list of per-layer views.  Idempotent: a baked tree comes
-    back as it is."""
-    cast = lambda a: a.to(act_dtype(cfg))
-    out = {k: tree_map(cast, v) for k, v in params.items() if k != "layers"}
-    layers = params["layers"]
-    if isinstance(layers, dict):
-        layers = unstack_layers(tree_map(cast, layers))
-    out["layers"] = [tree_map(cast, p) for p in layers]
+    (bit-identical to the reference's cast at each use), the MoE router
+    kept fp32 (the reference's cast at its use), and each layer stack as
+    a list of per-layer views.  Idempotent: a baked tree comes back as it
+    is."""
+    dtype = act_dtype(cfg)
+    stacks = [name for name, _, _ in STACKS]
+    out = {k: _bake(v, dtype) for k, v in params.items() if k not in stacks}
+    for name in stacks:
+        if name not in params:
+            continue
+        layers = params[name]
+        if isinstance(layers, dict):
+            layers = unstack_layers(_bake(layers, dtype))
+        out[name] = [_bake(p, dtype) for p in layers]
     return out
 
 
@@ -194,34 +241,107 @@ def gqa_attn(p, cfg: ArchConfig, x, rope_cs, cache, pos, *, causal=True):
     return out.reshape(B, S, H * Dh) @ p["wo"].to(x.dtype)
 
 
+def _lane_len(v):
+    """A cache length, int or tensor (0-d or per lane (B,)), shaped to
+    broadcast against (B, H, S, S_kv) scores."""
+    return v.reshape(-1, 1, 1, 1) if isinstance(v, torch.Tensor) else v
+
+
+def mla_attn(p, cfg: ArchConfig, x, rope_cs, cache, pos):
+    """DeepSeek-V2 multi-head latent attention.  Caches only the
+    compressed latent (``cache`` = this layer's {"c_kv" (B, S_max, r),
+    "k_rope" (B, S_max, 1, dr)} views, written in place) and up-projects
+    it per call (the baseline); with ``cfg.mla_absorb`` a cached S=1 call
+    folds W_uk into the query and W_uv into the output and attends in the
+    latent space, scores in fp32 (the reference's
+    ``preferred_element_type``), masked to -1e30 past the lane's
+    length."""
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
+    dv, r = cfg.v_head_dim, cfg.kv_lora_rank
+    cos, sin = rope_cs
+    q = (x @ p["wq"].to(x.dtype)).view(B, S, H, dn + dr)
+    q_nope, q_rope = q[..., :dn], apply_rope(q[..., dn:], cos, sin)
+    dkv = x @ p["w_dkv"].to(x.dtype)
+    c_kv = rmsnorm(dkv[..., :r], p["kv_norm"])
+    k_rope = apply_rope(dkv[..., None, r:], cos, sin)  # one shared head
+    kv_len, q_offset = None, 0
+    if cache is not None:
+        _write_rows(cache["c_kv"], c_kv, pos)
+        _write_rows(cache["k_rope"], k_rope, pos)
+        c_kv, k_rope = cache["c_kv"].to(x.dtype), cache["k_rope"].to(x.dtype)
+        kv_len, q_offset = pos + S, pos
+    w_ukv = p["w_ukv"].to(x.dtype)
+    if cfg.mla_absorb and S == 1 and cache is not None:
+        w_ukv = w_ukv.view(r, H, dn + dv)
+        w_uk, w_uv = w_ukv[..., :dn], w_ukv[..., dn:]
+        q_eff = torch.einsum("bshd,rhd->bshr", q_nope, w_uk)
+        scores = torch.einsum("bshr,bkr->bhsk", q_eff.float(), c_kv.float())
+        scores = scores + torch.einsum("bshd,bkzd->bhsk", q_rope.float(),
+                                       k_rope.float())
+        scores = scores * (dn + dr) ** -0.5
+        live = torch.arange(c_kv.shape[1], device=x.device) \
+            < _lane_len(kv_len)
+        scores = torch.where(live, scores, NEG_INF)
+        probs = torch.softmax(scores, dim=-1).to(x.dtype)
+        ctx = torch.einsum("bhsk,bkr->bshr", probs, c_kv)
+        out = torch.einsum("bshr,rhd->bshd", ctx, w_uv)
+    else:
+        ukv = (c_kv @ w_ukv).view(B, -1, H, dn + dv)
+        k_nope, v = ukv[..., :dn], ukv[..., dn:]
+        k = torch.cat([k_nope, k_rope.expand(B, k_nope.shape[1], H, dr)],
+                      dim=-1)
+        out = attention(torch.cat([q_nope, q_rope], dim=-1), k, v,
+                        causal=True, q_offset=q_offset, kv_len=kv_len,
+                        softmax_scale=(dn + dr) ** -0.5,
+                        chunked_threshold=cfg.attn_chunk_threshold)
+    return out.reshape(B, S, H * dv) @ p["wo"].to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
-# Layer body + stack
+# Layer body + stacks
 # ---------------------------------------------------------------------------
 
-def layer_fwd(p, cfg: ArchConfig, x, rope_cs, cache, pos, *, causal=True):
-    """One dense transformer layer; updates ``cache`` in place."""
+def layer_fwd(p, cfg: ArchConfig, x, rope_cs, cache, pos, *,
+              moe: bool = False, causal=True):
+    """One transformer layer; updates ``cache`` in place.  Returns (x,
+    metrics): the MoE FFN's {"moe_aux", "moe_dropped"}, else {}."""
     h = apply_norm(cfg.norm_type, p, "attn_norm", x)
-    a = gqa_attn(p["attn"], cfg, h, rope_cs, cache, pos, causal=causal)
-    mlp = MLP_FNS[cfg.mlp_type]
+    if cfg.use_mla:
+        a = mla_attn(p["attn"], cfg, h, rope_cs, cache, pos)
+    else:
+        a = gqa_attn(p["attn"], cfg, h, rope_cs, cache, pos, causal=causal)
+
+    def ffn(h):
+        if moe:
+            return moe_ffn(p["mlp"], cfg, h)
+        return MLP_FNS[cfg.mlp_type](p["mlp"], h), {}
+
     if cfg.parallel_block:
-        return x + a + mlp(p["mlp"], h)
+        m, metrics = ffn(h)
+        return x + a + m, metrics
     x = x + a
-    h = apply_norm(cfg.norm_type, p, "mlp_norm", x)
-    return x + mlp(p["mlp"], h)
+    m, metrics = ffn(apply_norm(cfg.norm_type, p, "mlp_norm", x))
+    return x + m, metrics
 
 
 def scan_layers(layers, cfg: ArchConfig, x, rope_cs, cache, pos, *,
-                causal=True):
-    """The layer stack: ``layers`` a stacked tree or a list of per-layer
-    trees (``bake_lm_params``); ``cache`` {"k", "v"} stacked (L, B, ...)
-    or None."""
+                moe: bool = False, causal=True):
+    """One homogeneous layer stack: ``layers`` a stacked tree or a list of
+    per-layer trees (``bake_lm_params``); ``cache`` the stack's cache dict
+    of stacked (L, B, ...) leaves, or None.  Returns (x, metrics), each
+    metric the mean over the stack's layers (the reference's)."""
     if isinstance(layers, dict):
         layers = unstack_layers(layers)
+    per = []
     for i, p in enumerate(layers):
-        c = None if cache is None else {"k": cache["k"][i],
-                                        "v": cache["v"][i]}
-        x = layer_fwd(p, cfg, x, rope_cs, c, pos, causal=causal)
-    return x
+        c = None if cache is None else {k: v[i] for k, v in cache.items()}
+        x, m = layer_fwd(p, cfg, x, rope_cs, c, pos, moe=moe, causal=causal)
+        per.append(m)
+    metrics = {k: torch.stack([m[k] for m in per]).mean()
+               for k in (per[0] if per else {})}
+    return x, metrics
 
 
 def embed_tokens(params, cfg: ArchConfig, tokens):
@@ -229,17 +349,25 @@ def embed_tokens(params, cfg: ArchConfig, tokens):
 
 
 def backbone(params, cfg: ArchConfig, x, pos, cache):
-    """Run the decoder stack on embedded ``x`` (B, S, D) from position
-    ``pos``; ``cache`` is the bundle's cache dict or None."""
+    """Run the decoder stacks (the dense ``layers``, then ``moe_layers``)
+    on embedded ``x`` (B, S, D) from position ``pos``; ``cache`` is the
+    bundle's cache dict ({"dense", "moe"}) or None.  Returns (the final
+    normed hidden states, metrics: the MoE stack's means)."""
     S = x.shape[1]
     ar = torch.arange(S, device=x.device)
     positions = ar + (pos.reshape(-1, 1) if isinstance(pos, torch.Tensor)
                       and pos.dim() else pos)
-    rope_dim = int(cfg.dh * cfg.rotary_frac)
+    rope_dim = int((cfg.qk_rope_dim if cfg.use_mla else cfg.dh)
+                   * cfg.rotary_frac)
     cos, sin = rope_angles(positions, rope_dim, cfg.rope_theta)
-    x = scan_layers(params["layers"], cfg, x, (cos, sin),
-                    None if cache is None else cache["dense"], pos)
-    return apply_norm(cfg.norm_type, params, "final_norm", x)
+    metrics = {}
+    for name, part, moe in STACKS:
+        if name in params:
+            x, m = scan_layers(params[name], cfg, x, (cos, sin),
+                               None if cache is None else cache[part], pos,
+                               moe=moe)
+            metrics.update(m)
+    return apply_norm(cfg.norm_type, params, "final_norm", x), metrics
 
 
 def logits_last(params, cfg: ArchConfig, hidden):

@@ -10,10 +10,10 @@ retirement) behind the historical ``add_request``/``step``/``outputs``/
 to a full batch ("throughput") or a quarter of it ("low-power").  By
 default ``max_sessions`` equals the batch, so admission beyond the grid
 raises (back-pressure); a larger ``max_sessions`` oversubscribes the grid
-with eviction to the host parking lot.  ``speculative > 0`` raises
-``NotImplementedError``: the drafter and verifier (``sessions/spec.py``)
-are not ported yet, and a server asked to speculate must not quietly
-decode greedily.
+with eviction to the host parking lot.  ``speculative=K > 0`` decodes
+through ``sessions/spec.SpeculativeDecoder`` (K-token self-drafts per lane,
+verified in one dispatch; ``spec_verify`` "scan" is bit-identical to plain
+greedy decode, "parallel" is the throughput mode).
 
 ``TCNStreamServer`` wraps
 ``sessions/service.StreamSessionService``: one session per stream, all
@@ -38,6 +38,7 @@ import numpy as np
 
 from repro_torch.sessions.lm import LMSessionService
 from repro_torch.sessions.service import StreamSessionService
+from repro_torch.sessions.spec import SpeculativeDecoder
 
 
 def _deprecated(old: str, new: str) -> None:
@@ -67,14 +68,12 @@ class LMServer:
     decodes one token for every live request; a request's first step also
     consumes its pending prompt token.  ``service_kw`` passes further
     ``LMSessionService`` options (``paged``, ``block_len``, ``n_blocks``,
-    ``metrics``, ``tracer``, ``device_counters``)."""
+    ``metrics``, ``tracer``, ``device_counters``).  With
+    ``cfg.speculative`` > 0, ``step(n)`` decodes through ``self.spec``, a
+    ``SpeculativeDecoder`` with the n-gram self-drafter (a 1-token step
+    has no room to draft and takes the plain scan inside it)."""
 
     def __init__(self, bundle, params, cfg: ServeConfig, **service_kw):
-        if cfg.speculative:
-            raise NotImplementedError(
-                f"ServeConfig(speculative={cfg.speculative}): speculative "
-                "decoding (sessions/spec.py) is not ported yet; use "
-                "speculative=0")
         self.bundle = bundle
         self.cfg = cfg
         B = cfg.effective_batch()
@@ -83,6 +82,9 @@ class LMServer:
             t_chunk=cfg.decode_chunk, prefill_chunk=cfg.prefill_chunk,
             max_sessions=B if cfg.max_sessions is None else cfg.max_sessions,
             **service_kw)
+        self.spec = (SpeculativeDecoder(self.service, k=cfg.speculative,
+                                        verify=cfg.spec_verify)
+                     if cfg.speculative else None)
 
     # historical mirrors -----------------------------------------------------
     @property
@@ -149,12 +151,13 @@ class LMServer:
         """Advance every live request, bound and parked, by ``n`` greedy
         tokens, in waves of at most ``n_slots`` requests (a wave's binds
         may park the previous wave's LRU members; every request still
-        gains exactly n tokens)."""
+        gains exactly n tokens), speculatively with ``cfg.speculative``."""
         live = [sid for sid, s in sorted(self.service.sessions.items())
                 if not s.done]
+        decode = self.spec.decode if self.spec is not None \
+            else self.service.decode
         for i in range(0, len(live), self.service.n_slots):
-            self.service.decode(
-                {sid: n for sid in live[i:i + self.service.n_slots]})
+            decode({sid: n for sid in live[i:i + self.service.n_slots]})
 
 
 class TCNStreamServer:

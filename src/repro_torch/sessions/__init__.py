@@ -1,9 +1,10 @@
-"""Sessions over a fixed slot grid (the port of ``repro/sessions``
-without spec.py): state.py, tenancy.py (dense banks), paging.py (the
-block allocator and the LM prefix registry), bankpool.py (paged banks),
-rehearsal.py (the u4 replay buffer), scheduler.py, service.py (the TCN
-``StreamSessionService``) and lm.py (``LMSessionService``, KV-cache
-serving).
+"""Sessions over a fixed slot grid (the port of ``repro/sessions``):
+state.py, tenancy.py (dense banks), paging.py (the block allocator and the
+LM prefix registry), bankpool.py (paged banks), rehearsal.py (the u4
+replay buffer), scheduler.py, service.py (the TCN
+``StreamSessionService``), lm.py (``LMSessionService``, KV-cache serving)
+and spec.py (``SpeculativeDecoder``, ``ngram_drafter``: speculative
+decoding of the pure-KV bundles).
 
 ``StreamSessionService`` and ``LMSessionService`` conform to the
 structural ``SessionService``
@@ -32,6 +33,12 @@ from repro_torch.sessions.service import (
     SessionRecord,
     SlotGridService,
     StreamSessionService,
+)
+from repro_torch.sessions.spec import (
+    SpeculativeDecoder,
+    make_verify_chunk,
+    make_verify_chunk_paged,
+    ngram_drafter,
 )
 from repro_torch.sessions.state import (
     decode_parked,
@@ -112,7 +119,8 @@ __all__ = [
     "SessionService", "STATS_SCHEMA", "METRICS_SCHEMA",
     "PagedBankPool", "paged_bank_fc", "NULL_BLOCK", "BlockPool",
     "PoolExhausted", "PrefixCache", "prefix_keys", "LMSessionService",
-    "pow2_chunks", "RehearsalBuffer", "AdmissionError", "CapacityError",
+    "pow2_chunks", "SpeculativeDecoder", "make_verify_chunk",
+    "make_verify_chunk_paged", "ngram_drafter", "RehearsalBuffer", "AdmissionError", "CapacityError",
     "SlotScheduler", "NO_TENANT", "SessionRecord", "SlotGridService",
     "StreamSessionService", "decode_parked", "grid_init", "grid_scan",
     "grid_step", "lengths_to_valid", "make_grid_fused", "pack_slot",

@@ -1,12 +1,13 @@
 """LM serving sessions: KV-cache park/resume, chunked multi-token decode,
 chunked prefill, paged KV with copy-on-write prefix sharing.
 
-The port of ``repro/sessions/lm.py`` (dense family; ``mesh=`` is not
-ported: the port runs on one card).  The slot-grid virtualization of the
-TCN service applies — more sessions than slots, LRU/cost eviction to a
-host parking lot, bit-identical resume in any slot — but a slot's state is
-a KV-cache column (every cache leaf sliced along its session axis) and a
-tick is a token chunk: ``decode_scan`` runs up to ``t_chunk`` greedy decode
+The port of ``repro/sessions/lm.py`` (the pure-KV families: dense and
+MoE, GQA or MLA caches; ``mesh=`` is not ported: the port runs on one
+card).  The slot-grid virtualization of the TCN service applies — more
+sessions than slots, LRU/cost eviction to a host parking lot,
+bit-identical resume in any slot — but a slot's state is a KV-cache
+column (every cache leaf sliced along its session axis) and a tick is a
+token chunk: ``decode_scan`` runs up to ``t_chunk`` greedy decode
 steps of every lane per dispatch.
 
 Per-lane positions.  The reference runs each lane as a ``jax.vmap`` body
@@ -20,7 +21,9 @@ chunked decode equals ``t_chunk=1`` bit for bit.  The reference's masking
 rule is kept exactly: a masked step still writes its (never read) K/V at
 the lane's frozen position, so every bound lane must be passed its TRUE
 position even when it is not decoded (position 0 would overwrite live
-history).  The dense family has no recurrent cache leaf; a bundle with one
+history).  A MoE FFN allocates expert capacity per sequence, so a lane's
+routing is its own too.  These families have no recurrent cache leaf; a
+bundle with one
 (RWKV, Mamba: value-masked in the reference) is refused until the slice
 that brings those families.
 
@@ -315,6 +318,11 @@ class LMSessionService(SlotGridService):
         self._g_pool_live.set(self.pool.n_live)
         self._g_pool_shared.set(self.pool.n_shared)
 
+    def _device_table(self) -> torch.Tensor:
+        """The per-lane block tables on the device, copied from the int32
+        host mirror (n_slots x max_blocks)."""
+        return torch.from_numpy(self._table).to(self.device)
+
     def _alloc_blocks(self, n: int) -> list[int]:
         """O(1) a block; a dry pool first releases LRU prefix-registry
         pins.  All or nothing: on exhaustion the partial allocation is
@@ -357,6 +365,27 @@ class LMSessionService(SlotGridService):
                          self.cache, self._batch_axes)
                 bids[i] = nb
                 self._table[slot, i] = nb
+        self._update_pool_gauges()
+
+    def _trim_blocks(self, sid: int) -> None:
+        """Free the blocks wholly past the session's position: the paged
+        form of a speculative rollback (the rejected suffix's blocks go
+        back to the pool; its rows in the kept block are dead by
+        position)."""
+        if not self.paged:
+            return
+        bids = self._blocks.get(sid)
+        if not bids:
+            return
+        keep = min(len(bids), -(-self.sessions[sid].steps // self.block_len))
+        if keep == len(bids):
+            return
+        for b in bids[keep:]:
+            self.pool.free(b)
+        del bids[keep:]
+        slot = self.sched.slot_of.get(sid)
+        if slot is not None:
+            self._table[slot, keep:] = 0
         self._update_pool_gauges()
 
     def _free_session_blocks(self, sid: int) -> None:
@@ -779,7 +808,7 @@ class LMSessionService(SlotGridService):
             return pack_column(self.cache, self._batch_axes, slot,
                                trunc_axes=self._seq_axes,
                                trunc_len=sess.steps)
-        row = torch.from_numpy(self._table[slot]).to(self.device)[None]
+        row = self._device_table()[slot][None]
         return map_tree(
             lambda a, bax, sax: pack_column(
                 {"x": gather_column(a, row, bax)}, {"x": bax}, 0,

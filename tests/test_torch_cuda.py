@@ -12,7 +12,11 @@ TCNStreamServer, each bit for bit against a synchronous control.  The
 dense LM family (olmo-1b and qwen2.5-32b cut narrow): t_chunk 16 == 1,
 paged == dense, park/resume and spill/restore bit for bit, the chunk
 schedule at its contract, and the baked bf16 tree equal to the per-use
-cast.  Marked ``cuda``; every test skips when no card is present.  This file
+cast; the same invariants for the MoE family (deepseek-v2-lite-16b with
+MLA, moonshot-v1-16b-a3b, cut narrow), the MoE FFN on the card against
+itself on the CPU (routing, top-k tie order and drop mask exact), and
+speculative decoding (scan mode equal to plain decode, parallel mode
+paged == dense).  Marked ``cuda``; every test skips when no card is present.  This file
 imports no JAX, so it runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -823,7 +827,9 @@ def _live_bits(svc, sids):
         svc.live_column(s)))]
 
 
-@pytest.mark.parametrize("name", ["olmo-1b", "qwen2.5-32b"])
+@pytest.mark.parametrize("name", ["olmo-1b", "qwen2.5-32b",
+                                  "deepseek-v2-lite-16b",
+                                  "moonshot-v1-16b-a3b"])
 def test_lm_invariants_bit_exact_on_card(dev, name):
     """t_chunk 16 == 1, paged == dense (prefix blocks shared copy-on-write)
     and park/resume through evictions, tokens and KV rows bit for bit."""
@@ -905,3 +911,102 @@ def test_lm_spill_restore_and_chunk_schedule_on_card(dev, tmp_path):
 
     for a, b in zip(_live_bits(scan, z), _live_bits(ctl, c)):
         assert int(np.abs(ordered(a) - ordered(b)).max()) <= 1
+
+
+# ---------------------------------------------------------------------------
+# the MoE FFN and speculative decoding on the card
+# ---------------------------------------------------------------------------
+
+def _moe(cap):
+    from repro_torch.models.config import ArchConfig
+    from repro_torch.models.moe import moe_param_defs
+    from repro_torch.models.params import init_params
+
+    cfg = ArchConfig(n_experts=16, moe_topk=4, d_model=128, d_ff_expert=64,
+                     n_shared_experts=2, capacity_factor=cap)
+    p = init_params(moe_param_defs(cfg), torch.Generator().manual_seed(0),
+                    "cpu")
+    p["router"] = p["router"] / 0.006 * 128 ** -0.5  # away from near-ties
+    return cfg, p
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cap", [0.5, 64.0])
+def test_moe_ffn_card_matches_cpu(no_tf32, dtype, cap):
+    """moe_ffn on the card against itself on the CPU: the same top-k
+    experts and drop mask, y within the parity tests' tolerances."""
+    from repro_torch.models.moe import expert_capacity, moe_ffn, \
+        positions_in_expert, route
+
+    dev = no_tf32
+    cfg, p = _moe(cap)
+    x = torch.randn((8, 64, 128), generator=torch.Generator().manual_seed(1)
+                    ).to(dtype)
+    pd = {k: (v.to(dev) if not isinstance(v, dict) else
+              {kk: vv.to(dev) for kk, vv in v.items()}) for k, v in p.items()}
+    y, m = moe_ffn(p, cfg, x)
+    yd, md = moe_ffn(pd, cfg, x.to(dev))
+    _, _, e = route(p, cfg, x)
+    _, _, ed = route(pd, cfg, x.to(dev))
+    assert torch.equal(e, ed.cpu())
+    C = expert_capacity(64, cfg)
+    keep = positions_in_expert(e.reshape(8, -1), 16) < C
+    keep_d = positions_in_expert(ed.reshape(8, -1), 16) < C
+    assert torch.equal(keep, keep_d.cpu())
+    assert float(m["moe_dropped"]) == float(md["moe_dropped"])
+    assert (float(m["moe_dropped"]) > 0) == (cap == 0.5)
+    scale = max(1.0, float(y.float().abs().max()))
+    err = float((yd.cpu().float() - y.float()).abs().max())
+    assert err <= (1e-4 if dtype == torch.float32 else 5e-2) * scale
+
+
+def test_moe_topk_tie_order_on_card(dev):
+    """Ties go to the lower expert index on the card (a stable descending
+    sort), and the stable argsort of the flattened expert ids places each
+    pair as on the CPU."""
+    from repro_torch.models.moe import positions_in_expert
+
+    pr = torch.tensor([[0.1, 0.3, 0.3, 0.0, 0.3, 0.3]] * 64)
+    _, idx = torch.sort(pr.to(dev), dim=-1, descending=True, stable=True)
+    assert (idx[:, :4].cpu() == torch.tensor([1, 2, 4, 5])).all()
+    flat = torch.randint(0, 6, (8, 4096), generator=torch.Generator()
+                         .manual_seed(2))
+    assert torch.equal(positions_in_expert(flat.to(dev), 6).cpu(),
+                       positions_in_expert(flat, 6))
+
+
+@pytest.mark.parametrize("name", ["olmo-1b", "deepseek-v2-lite-16b"])
+def test_speculative_on_card(dev, name):
+    """Scan-mode speculation emits plain decode's tokens bit for bit for
+    the n-gram and a random drafter, dense and paged; parallel mode's
+    paged stream equals its dense one."""
+    from repro_torch.sessions import SpeculativeDecoder, ngram_drafter
+
+    bundle, params = _lm(dev, name)
+    prompts = _lm_prompts()
+    plain = _lm_svc(bundle, params)
+    sids = [plain.open_session(p) for p in prompts]
+    out = plain.decode({s: 24 for s in sids})
+    want = [out[s] for s in sids]
+
+    def rand(hist, k):
+        return np.random.default_rng(len(hist)).integers(
+            0, 512, size=k).astype(np.int32)
+
+    for paged in (False, True):
+        for dr in (ngram_drafter(), rand):
+            svc = _lm_svc(bundle, params, paged=paged)
+            sp = SpeculativeDecoder(svc, dr, k=4)
+            s = [svc.open_session(p) for p in prompts]
+            got = sp.decode({x: 10 for x in s})
+            rest = sp.decode({x: 14 for x in s})
+            assert [got[x] + rest[x] for x in s] == want, (paged, dr)
+    par = []
+    for paged in (False, True):
+        svc = _lm_svc(bundle, params, paged=paged)
+        sp = SpeculativeDecoder(svc, ngram_drafter(), k=4, verify="parallel")
+        s = [svc.open_session(p) for p in prompts]
+        got = sp.decode({x: 24 for x in s})
+        par.append([got[x] for x in s])
+        assert all(len(g) == 24 for g in par[-1])
+    assert par[0] == par[1]

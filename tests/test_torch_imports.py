@@ -42,7 +42,7 @@ def test_port_files_found():
             "episodic.py", "compress.py", "optim.py", "trainer.py",
             "trees.py", "layers.py", "transformer.py", "params.py",
             "lm.py", "host.py", "shapes.py", "olmo_1b.py",
-            "qwen25_32b.py"} <= names
+            "qwen25_32b.py", "moe.py", "spec.py"} <= names
 
 
 @pytest.mark.parametrize("module", ["repro_torch.kernels.dispatch",

@@ -299,8 +299,7 @@ def test_init_params_seeded_on_device():
 
 
 @pytest.mark.parametrize("name", [
-    "rwkv6-1.6b", "zamba2-1.2b", "deepseek-v2-lite-16b",
-    "moonshot-v1-16b-a3b", "internvl2-76b", "seamless-m4t-large-v2"])
+    "rwkv6-1.6b", "zamba2-1.2b", "internvl2-76b", "seamless-m4t-large-v2"])
 def test_other_families_refuse(name):
     """Every config is data, field for field the reference's; a family
     this slice does not bring raises instead of building something else."""
@@ -309,3 +308,22 @@ def test_other_families_refuse(name):
         j_get_config(name)).items()})
     with pytest.raises(NotImplementedError, match="not ported yet"):
         build_bundle(cfg, "cpu")
+
+
+@pytest.mark.parametrize("name", ["deepseek-v2-lite-16b",
+                                  "moonshot-v1-16b-a3b"])
+def test_moe_configs_equal_the_reference_and_build(name):
+    """The MoE configs are the reference's field for field and build at
+    full size: the same parameter count and the same cache tree shapes
+    ({"dense", "moe"} stacks; MLA's latent leaves for deepseek)."""
+    from repro.launch.analytic import param_count as j_param_count
+
+    cfg = get_config(name)
+    assert cfg == cfg.replace(**{k: v for k, v in vars(
+        j_get_config(name)).items()})
+    b, jb = build_bundle(cfg, "cpu"), j_build_bundle(j_get_config(name))
+    assert param_count(b.param_defs) == j_param_count(jb.param_defs)
+    got = {k: {kk: tuple(v.shape) for kk, v in leaves.items()}
+           for k, leaves in b.cache_specs(2, 64).items()}
+    want = jax.tree.map(lambda s: tuple(s.shape), jb.cache_specs(2, 64))
+    assert got == want and set(got) == {"dense", "moe"}

@@ -2,7 +2,9 @@
 protocol and the ServingPlane, on the CPU: the LM cases of
 tests/test_serving.py (slots and outputs, slot reuse, mid-decode
 admission, reused slots, oversubscription, the protocol adapter and the
-deprecation shims), ``speculative > 0`` refused, the lifecycle matrix and
+deprecation shims), ``speculative > 0`` decoding through the speculative
+decoder in both verify modes (an unknown mode refused), the lifecycle
+matrix and
 the STATS_SCHEMA/METRICS_SCHEMA conformance of tests/test_service_protocol
 .py for LMSessionService, and the port's ServingPlane over two port LM
 services (tests/test_serving_plane.py, tests/test_chaos.py): concurrent
@@ -177,10 +179,34 @@ def test_lm_server_shims_warn_and_delegate():
 
 @pytest.mark.parametrize("k", [1, 4])
 def test_speculative_decoding_is_refused(k):
-    """sessions/spec.py is not ported: a server asked to speculate raises
-    instead of decoding greedily."""
-    with pytest.raises(NotImplementedError, match="speculative"):
-        _srv(max_batch=2, seq_cap=32, speculative=k)
+    """A server asked to speculate with an unknown verify mode raises
+    instead of decoding some other way."""
+    with pytest.raises(ValueError, match="verify"):
+        _srv(max_batch=2, seq_cap=32, speculative=k, spec_verify="teleport")
+
+
+@pytest.mark.parametrize("verify", ["scan", "parallel"])
+@pytest.mark.parametrize("k", [1, 4])
+def test_lm_server_speculates(k, verify):
+    """``ServeConfig(speculative=k)`` decodes through the server's
+    SpeculativeDecoder: every request gains exactly n tokens a step; scan
+    mode's streams are a plain server's bit for bit."""
+    plain = _srv(max_batch=2, seq_cap=32)
+    srv = _srv(max_batch=2, seq_cap=32, speculative=k, spec_verify=verify)
+    assert srv.spec is not None and srv.spec.k == k
+    assert srv.spec.verify == verify
+    prompts = [np.array([1, 2, 1, 2, 1], np.int32), np.array([7], np.int32)]
+    for s in (plain, srv):
+        for p in prompts:
+            s.open_session(p)
+        s.step(1)
+        s.step(9)
+    assert all(len(o) == 10 for o in srv.outputs.values())
+    if verify == "scan":
+        assert srv.outputs == plain.outputs
+    assert srv.spec.drafted > 0
+    assert srv.metrics()["spec_drafted_total"][0]["value"] == \
+        srv.spec.drafted
 
 
 # ---------------------------------------------------------------------------
