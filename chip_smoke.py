@@ -136,6 +136,31 @@ non-zero):
            park/resume invariance; the device acceptance count equal to
            the host's; tokens/s and acceptance for plain decode and both
            modes.  No port kernel launched (asserted).
+  recurrent  the recurrent families through LMServer on seeded random
+           weights baked to bf16 (the leaves the reference casts to fp32
+           at use kept fp32; the baked decode equal to the fp32 tree's):
+           rwkv6-1.6b (24 layers, d 2048, d_ff 7168, 32 wkv heads x 64,
+           vocab 65,536), then zamba2-1.2b (38 Mamba2 layers, d_inner
+           4096, 64 heads x 64, state 64, conv 4; the shared attention
+           block every 6 layers, 32 heads x 64; d_ff 8192; vocab 32,000),
+           both at full width and depth, seq_cap 256: 8 requests of 16-48
+           tokens fed token by token (no chunked prefill), 32 greedy
+           tokens each; t_chunk 16 == 1 bit for bit (tokens, every cache
+           leaf), a ragged dispatch (one lane masked) bit-equal for the
+           other lanes with the masked lane's cache frozen, a second wave
+           of 16 sessions over the 8 slots against never-parked controls,
+           two sessions spilled and restored against their continuations,
+           zamba paged (block_len 16) == dense and its paged wave, RWKV's
+           paged=True server dense; scan-mode speculation (K=4), lanes
+           drafting with the oracle, always-wrong, random and n-gram
+           drafters, every session parked mid-draft, equal to plain decode
+           with the device acceptance count equal to the host's, dense and
+           (zamba) paged; parallel verify refused (ValueError).  Reported:
+           step_fn's chunked form against token-by-token steps, ms per
+           token at T=1 and in T=16 dispatches, launches and idle share
+           of a step, prefill tokens/s, park bytes (fixed and a token) and
+           the bytes bound of a step (weights + recurrent state read and
+           written + KV rows).  No port kernel launched (asserted).
 
     python3 chip_smoke.py --compare-with DIR
 
@@ -3505,6 +3530,389 @@ def phase_spec(cfg, dev, smi: str, seed: int = 21,
 
 
 # ---------------------------------------------------------------------------
+# phase: recurrent (rwkv6-1.6b and the zamba2-1.2b hybrid through LMServer)
+# ---------------------------------------------------------------------------
+
+REC_SEQ_CAP, REC_PROMPT_LEN, REC_GEN, REC_EXTRA = 256, (16, 48), 32, 8
+REC_SPEC_GEN, REC_TIMED = 16, 10
+
+
+def rec_prompts(rng, n: int, vocab: int) -> list:
+    """``n`` prompts of REC_PROMPT_LEN tokens (no shared prefix: a
+    recurrent service shares none)."""
+    import numpy as np
+
+    lo, hi = REC_PROMPT_LEN
+    return [rng.integers(0, vocab, int(rng.integers(lo, hi + 1)))
+            .astype(np.int32) for _ in range(n)]
+
+
+def rec_server(bundle, params, **kw):
+    """An LMServer of the recurrent phase: the lm phase's geometry with
+    seq_cap REC_SEQ_CAP (prompts, generation and drafts stay far below)."""
+    return lm_server(bundle, params, **{"seq_cap": REC_SEQ_CAP, **kw})
+
+
+def rec_open(srv, prompts, dev) -> tuple[list, float]:
+    """Open the prompts and feed them token by token (a zero-token push
+    feeds every prompt but its last token, which the first decode step
+    feeds): (sids, seconds of the feed)."""
+    sids = [srv.open_session(p) for p in prompts]
+    sync(dev)
+    t0 = time.perf_counter()
+    srv.push({s: 0 for s in sids})
+    sync(dev)
+    return sids, time.perf_counter() - t0
+
+
+def rec_columns(srv, sids) -> list:
+    """Every session's cache column as host bits: recurrent leaves whole,
+    KV rows [0, steps)."""
+    return lm_kv(srv, sids)
+
+
+def rec_step_bytes(bundle, params, svc, sids) -> dict:
+    """The bytes a decode step must move: every baked weight once, each
+    lane's recurrent leaves read and written, and the KV rows its
+    attention reads (live rows; the full columns as the upper end)."""
+    from repro_torch.utils.trees import tree_leaves
+
+    w = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    rec = svc._park_fixed * svc.n_slots * 2
+    live = sum(svc.sessions[s].steps for s in sids)
+    kv = svc._park_per_pos * live
+    kv_full = svc._park_per_pos * svc.n_slots * svc.seq_cap
+    return {"weights": w, "recurrent_rw": rec, "kv_live": kv,
+            "kv_full": kv_full,
+            "lo_ms": (w + rec + kv) / PEAK_BYTES * 1e3,
+            "hi_ms": (w + rec + kv_full) / PEAK_BYTES * 1e3}
+
+
+def rec_chunk_report(bundle, params, prompts, dev, name) -> dict:
+    """Reported, not gated: ``step_fn`` over the first 16 tokens of the 8
+    prompts at once (the chunked WKV/SSD form) against 16 token-by-token
+    ``decode_fn`` steps from the same empty cache: the last position's
+    logits and every recurrent leaf, as a share of their scale.  The
+    chunk form reassociates the recurrence, in the reference too."""
+    import numpy as np
+    import torch
+
+    n = REC_PROMPT_LEN[0]
+    toks = torch.from_numpy(np.stack([p[:n] for p in prompts])).to(dev)
+    B = toks.shape[0]
+    with torch.no_grad():
+        lg_c, c_chunk = bundle.step_fn(
+            params, bundle.empty_cache(B, REC_SEQ_CAP),
+            {"tokens": toks, "pos": torch.zeros(B, dtype=torch.int32,
+                                                device=dev)})
+        cache = bundle.empty_cache(B, REC_SEQ_CAP)
+        for j in range(n):
+            lg_s, cache = bundle.decode_fn(
+                params, cache, {"tokens": toks[:, j:j + 1],
+                                "pos": torch.full((B,), j, dtype=torch.int32,
+                                                  device=dev)})
+    a, b = lg_c[:, -1].float(), lg_s.float()
+    if not bool(torch.isfinite(lg_c).all() & torch.isfinite(b).all()):
+        raise RuntimeError(f"{name}: non-finite step or decode logits")
+    out = {"logits": float((a - b).abs().max()) / max(1.0, float(
+        b.abs().max())),
+           "argmax_equal": int((a.argmax(-1) == b.argmax(-1)).sum())}
+    leaves = {}
+
+    def walk(x, y, key=""):
+        if isinstance(x, dict):
+            for k in x:
+                walk(x[k], y[k], f"{key}/{k}")
+            return
+        x, y = x.float(), y.float()
+        leaves[key] = float((x - y).abs().max()) / max(
+            1e-30, float(y.abs().max()))
+
+    walk({k: v for k, v in c_chunk.items() if k != "attn"},
+         {k: v for k, v in cache.items() if k != "attn"})
+    out["leaves"] = leaves
+    log(f"{name}: step_fn over {n} tokens x {B} lanes (chunked form) "
+        f"against {n} decode steps (reported, not gated): last logits "
+        f"{out['logits']:.3e} of their scale apart, argmax equal on "
+        f"{out['argmax_equal']} of {B} lanes; recurrent leaves apart by "
+        + ", ".join(f"{k} {v:.3e}" for k, v in leaves.items())
+        + " of their scale")
+    return out
+
+
+def rec_spec(bundle, params, prompts, full, dev, name, smi, **kw) -> dict:
+    """Scan-mode speculation (K=SPEC_K) through LMServer(speculative=...)
+    over the 8 prompts, lane i drafting with the zoo's drafter i % 4
+    (oracle, always-wrong, random, n-gram), device counters on; every
+    session parked mid-draft (between two step calls): each stream
+    equals plain decode's bit for bit and the device acceptance count
+    the host's.  Returns acceptance and tokens/s."""
+    zoo = spec_drafters(prompts, full, bundle.cfg.vocab_size)
+    names = list(zoo)
+
+    def mixed(hist, k):
+        i = max((i for i, p in enumerate(prompts) if len(hist) >= len(p)
+                 and (hist[:len(p)] == p).all()),
+                key=lambda i: len(prompts[i]))
+        return zoo[names[i % len(names)]](hist, k)
+
+    lay = "paged" if kw.get("paged") else "dense"
+    srv, sids, got, sec = spec_run(
+        bundle, params, prompts, dev, REC_SPEC_GEN, mixed, park=True,
+        seq_cap=REC_SEQ_CAP, device_counters=True, **kw)
+    want = [f[:REC_SPEC_GEN] for f in full]
+    if got != want:
+        bad = [names[i % 4] for i, (g, w) in enumerate(zip(got, want))
+               if g != w]
+        raise RuntimeError(f"{name}: {lay} scan-mode speculation differs "
+                           f"from plain decode (drafters {bad})")
+    dev_acc = srv.metrics()["spec_device_accepted_total"][0]["value"]
+    if dev_acc != srv.spec.accepted:
+        raise RuntimeError(f"{name}: device acceptance {dev_acc} != host "
+                           f"{srv.spec.accepted}")
+    if kw.get("paged"):
+        spec_blocks_trimmed(srv, sids, name)
+    per = {names[i]: sum(srv.spec.accepts.get(s, 0) for j, s in
+                         enumerate(sids) if j % 4 == i) for i in range(4)}
+    log(f"{name}: scan mode ({lay}), K={SPEC_K}, lanes drafting with the "
+        f"oracle, always-wrong, random and n-gram drafters (two lanes "
+        f"each), every session parked mid-draft: {len(sids)}x"
+        f"{REC_SPEC_GEN} tokens bit-equal to plain decode; accepted "
+        f"{per} of {srv.spec.drafted} drafted (device count {dev_acc:.0f}"
+        f" == host); {srv.service.dispatches} dispatches, "
+        f"{len(sids) * REC_SPEC_GEN / sec:,.1f} tokens/s (prompt feed "
+        f"included) [{smi}]")
+    out = {"acceptance": srv.spec.acceptance_rate, "per_drafter": per,
+           "tps": len(sids) * REC_SPEC_GEN / sec}
+    del srv
+    return out
+
+
+def phase_recurrent(cfg, dev, smi: str, seed: int = 22,
+                    depth_note: str = "full depth") -> dict:
+    """A recurrent LM (rwkv6-1.6b, or the zamba2-1.2b hybrid) served
+    through LMServer on seeded random weights baked to bf16 (the baked
+    tree's decode equal to the fp32 tree's per-use cast), 8 requests of
+    REC_PROMPT_LEN tokens fed token by token, REC_GEN greedy tokens each.
+    Bit for bit: t_chunk 16 == 1 (tokens and every cache leaf); a ragged
+    dispatch (one lane masked) leaves the other lanes' bits as a full
+    dispatch's and the masked lane's cache as it was; a second wave of 16
+    sessions over the 8 slots (every session parks and resumes) against
+    never-parked controls; two sessions spilled and restored into a fresh
+    server against their never-spilled continuations; zamba paged
+    (block_len 16) == dense, RWKV's paged=True server stays dense; scan
+    speculation equal to plain decode (``rec_spec``), dense and (zamba)
+    paged; parallel verify refused with ValueError.  Reported: the chunk
+    form against the steps, ms per token at T=1 and in T=16 dispatches,
+    launches and idle share of a step, prefill tokens/s, park bytes and
+    the bytes bound of a step.  No port kernel launches."""
+    import numpy as np
+    import torch
+    from repro_torch.models import build_bundle
+    from repro_torch.models.params import param_count
+    from repro_torch.models.transformer import bake_lm_params
+    from repro_torch.serving import LMServer, ServeConfig
+    from repro_torch.utils.trees import tree_leaves
+
+    hybrid = cfg.family == "hybrid"
+    name = f"recurrent {cfg.name} ({cfg.n_layers} layers, {depth_note})"
+    bundle = build_bundle(cfg, dev)
+    t0 = time.perf_counter()
+    raw = bundle.init(torch.Generator(device=dev).manual_seed(seed))
+    params = bake_lm_params(raw, cfg)
+    sync(dev)
+    w_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    log(f"{name}: {param_count(bundle.param_defs):,} params drawn on the "
+        f"card and baked to {cfg.act_dtype} ({w_bytes / 1e9:.3f} GB; the "
+        f"leaves cast to fp32 at use stay fp32) in "
+        f"{time.perf_counter() - t0:.2f} s [{smi}]")
+    rng = np.random.default_rng(seed)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (LM_SLOTS, 1))
+                           .astype(np.int32)).to(dev)
+    pos = torch.zeros(LM_SLOTS, dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        la, ca = bundle.decode_fn(raw, bundle.empty_cache(LM_SLOTS, 32),
+                                  {"tokens": tok, "pos": pos})
+        lb, cb = bundle.decode_fn(params, bundle.empty_cache(LM_SLOTS, 32),
+                                  {"tokens": tok, "pos": pos})
+    if not torch.equal(la, lb) or not all(
+            torch.equal(x, y) for x, y in zip(tree_leaves(ca),
+                                              tree_leaves(cb))):
+        raise RuntimeError(f"{name}: the baked tree's decode differs from "
+                           "the per-use cast's")
+    del raw, la, lb, ca, cb
+    torch.cuda.empty_cache()
+
+    prompts = rec_prompts(rng, LM_SLOTS, cfg.vocab_size)
+    n_prefill = sum(len(p) - 1 for p in prompts)
+    zero_launch_counts()
+    dense = rec_server(bundle, params)
+    svc = dense.service
+    if svc.parallel_safe or svc.prefill_chunk:
+        raise RuntimeError(f"{name}: a recurrent service must not chunk "
+                           "its prefill")
+    d_sids, d_s = rec_open(dense, prompts, dev)
+    dense.step(REC_GEN)
+    d_out = [list(dense.outputs[s]) for s in d_sids]  # copies: it goes on
+    if any(len(o) != REC_GEN for o in d_out):
+        raise RuntimeError(f"{name}: {[len(o) for o in d_out]} tokens")
+    d_cols = rec_columns(dense, d_sids)
+    log(f"{name}: prefill token by token, {n_prefill} prompt tokens (8 "
+        f"prompts of {min(map(len, prompts))}-{max(map(len, prompts))}) "
+        f"in {d_s * 1e3:.1f} ms = {n_prefill / d_s:,.1f} tokens/s "
+        f"({svc.dispatches} dispatches so far) [{smi}]")
+    # t_chunk = 1: the same tokens and cache bits
+    one = rec_server(bundle, params, decode_chunk=1)
+    o_sids, _ = rec_open(one, prompts, dev)
+    one.step(REC_GEN)
+    if [one.outputs[s] for s in o_sids] != d_out \
+            or not same_kv(rec_columns(one, o_sids), d_cols):
+        raise RuntimeError(f"{name}: t_chunk=1 differs from t_chunk=16")
+    log(f"{name}: t_chunk=16 == t_chunk=1 bit for bit (tokens, every cache "
+        f"leaf; {one.service.dispatches} vs {svc.dispatches} dispatches)")
+    # a ragged dispatch: lane 0 masked on the t_chunk=1 twin, every lane
+    # decoded on the dense server; the masked lane keeps its bits
+    before = rec_columns(one, o_sids[:1])
+    got = one.push({s: REC_EXTRA for s in o_sids[1:]})
+    want = dense.push({s: REC_EXTRA for s in d_sids})
+    if [got[s] for s in o_sids[1:]] != [want[s] for s in d_sids[1:]] \
+            or not same_kv(rec_columns(one, o_sids[1:]),
+                           rec_columns(dense, d_sids[1:])) \
+            or not same_kv(rec_columns(one, o_sids[:1]), before):
+        raise RuntimeError(f"{name}: a masked lane perturbed its "
+                           "neighbours or itself")
+    log(f"{name}: ragged dispatch (lane 0 masked, {REC_EXTRA} tokens): "
+        f"the 7 other lanes bit-equal to a full dispatch's, lane 0's "
+        f"cache bit-frozen")
+    del one
+    # paging: zamba's KV pools beside dense Mamba leaves; RWKV stays dense
+    paged = rec_server(bundle, params, paged=True, block_len=LM_BLOCK)
+    if not hybrid:
+        if paged.service.paged:
+            raise RuntimeError(f"{name}: a paged=True RWKV server paged")
+        log(f"{name}: paged=True server stayed dense (no sequence-axis "
+            "leaf to page)")
+    else:
+        p_sids, _ = rec_open(paged, prompts, dev)
+        paged.step(REC_GEN)
+        if [paged.outputs[s] for s in p_sids] != d_out \
+                or not same_kv(rec_columns(paged, p_sids), d_cols):
+            raise RuntimeError(f"{name}: paged differs from dense")
+        st = paged.stats()["paged"]
+        log(f"{name}: paged == dense bit for bit ({REC_GEN} tokens x 8, "
+            f"Mamba leaves and KV rows); pool blocks live "
+            f"{st['blocks_live']}/{st['n_blocks']}")
+    del paged
+    # the second wave: 16 sessions over 8 slots, dense (and paged)
+    second = rec_prompts(rng, LM_WAVE_SESSIONS - LM_SLOTS, cfg.vocab_size)
+    ctl2 = rec_server(bundle, params)
+    c2_sids, _ = rec_open(ctl2, second, dev)
+    ctl2.step(REC_GEN)
+    wave_want = d_out + [list(ctl2.outputs[s]) for s in c2_sids]
+    spilled = None
+    for pg in ((False, True) if hybrid else (False,)):
+        kw = {"paged": True, "block_len": LM_BLOCK} if pg else {}
+        srv = rec_server(bundle, params, max_sessions=LM_WAVE_SESSIONS, **kw)
+        sids = [srv.open_session(p) for p in prompts + second]
+        srv.step(REC_GEN // 2)
+        srv.step(REC_GEN - REC_GEN // 2)
+        ev = srv.stats()["evictions"]
+        if [srv.outputs[s] for s in sids] != wave_want \
+                or ev < LM_WAVE_SESSIONS:
+            raise RuntimeError(f"{name}: the {'paged' if pg else 'dense'} "
+                               f"wave differs from its controls ({ev} "
+                               "evictions)")
+        log(f"{name}: {'paged' if pg else 'dense'} wave of "
+            f"{LM_WAVE_SESSIONS} sessions on {LM_SLOTS} slots: {ev} "
+            f"evictions, every stream bit-equal to its never-parked "
+            f"control; parked bytes {srv.stats()['parked_blob_bytes']:,}")
+        if not pg:
+            spilled = (srv, sids)
+    # spill one session of each wave, restore into a fresh server
+    srv, sids = spilled
+    keep = [sids[0], sids[LM_SLOTS]]
+    for s in sids:
+        if s not in keep:
+            srv.close(s)
+    spill = ROOT / "build" / "rec_spill.npz"
+    t0 = time.perf_counter()
+    srv.service.spill_parking(str(spill), include_bound=True)
+    t_spill = time.perf_counter() - t0
+    del srv, spilled
+    fresh = LMServer(bundle, params, ServeConfig(
+        max_batch=LM_SLOTS, seq_cap=REC_SEQ_CAP, decode_chunk=LM_T_CHUNK,
+        max_sessions=LM_WAVE_SESSIONS))
+    restored = fresh.service.restore_parking(str(spill))
+    size = spill.stat().st_size
+    spill.unlink()
+    cont = fresh.push({s: REC_EXTRA for s in restored})
+    twin = ctl2.push({c2_sids[0]: REC_EXTRA})
+    want = [dense.outputs[d_sids[0]][REC_GEN:REC_GEN + REC_EXTRA],
+            twin[c2_sids[0]]]
+    if [cont[s] for s in restored] != want:
+        raise RuntimeError(f"{name}: restored sessions differ from their "
+                           "never-spilled continuations")
+    log(f"{name}: spilled 2 sessions ({size:,} bytes, {t_spill:.2f} s), "
+        f"restored, {REC_EXTRA} more tokens each bit-equal to the "
+        "never-spilled continuations")
+    del fresh, ctl2
+    # every logit finite: each prompt's prefill (the chunked form) and a
+    # decode step
+    with torch.no_grad():
+        for p in prompts:
+            lg, _ = bundle.prefill_fn(params, {"tokens": torch.from_numpy(
+                p[None]).to(dev)})
+            if not bool(torch.isfinite(lg).all()):
+                raise RuntimeError(f"{name}: non-finite prefill logits")
+    chunk = rec_chunk_report(bundle, params, prompts, dev, name)
+    # speculation: scan mode equal to plain decode, dense and paged;
+    # parallel mode refused
+    spec = {"dense": rec_spec(bundle, params, prompts, d_out, dev, name,
+                              smi)}
+    if hybrid:
+        spec["paged"] = rec_spec(bundle, params, prompts, d_out, dev, name,
+                                 smi, paged=True, block_len=LM_BLOCK)
+    try:
+        rec_server(bundle, params, speculative=SPEC_K,
+                   spec_verify="parallel")
+    except ValueError as e:
+        log(f"{name}: verify='parallel' refused: {e}")
+    else:
+        raise RuntimeError(f"{name}: parallel verify was not refused")
+    # timings on the dense server (8 lanes at their positions)
+    one_tok = lambda: dense.push({s: 1 for s in d_sids})
+    chunk16 = lambda: dense.push({s: LM_T_CHUNK for s in d_sids})
+    ms1 = time_ms(one_tok, dev, n=REC_TIMED)
+    ms16 = time_ms(chunk16, dev, n=2, warmup=1) / LM_T_CHUNK
+    prof = profile_tick(one_tok, ticks=5, name=f"{name} decode step")
+    sb = rec_step_bytes(bundle, params, svc, d_sids)
+    fixed, per_tok = svc._park_fixed, svc._park_per_pos
+    log(f"{name}: decode p50 {ms1:.3f} ms per token (T=1 dispatch of 8 "
+        f"lanes, {REC_TIMED} timed), {ms16:.3f} ms per token in "
+        f"T={LM_T_CHUNK} dispatches; {prof['launches']:.0f} launches and "
+        f"idle share {1 - prof['busy_ms'] / prof['wall_ms']:.4f} a step; "
+        f"park bytes a session {fixed:,} fixed + {per_tok:,} a token; "
+        f"bytes bound of a step {sb['lo_ms']:.4f} ms (weights "
+        f"{sb['weights'] / 1e9:.3f} GB + recurrent state read and written "
+        f"{sb['recurrent_rw'] / 1e6:.1f} MB + live KV rows "
+        f"{sb['kv_live'] / 1e6:.2f} MB) to {sb['hi_ms']:.4f} ms (+ the "
+        f"full {REC_SEQ_CAP}-row KV columns) at 3.35 TB/s [{smi}]")
+    counts = lm_launch_counts()
+    if any(counts.values()):
+        raise RuntimeError(f"{name}: the recurrent path launched a port "
+                           f"kernel {counts}; it should reach none")
+    log(f"{name}: launches of the four port kernels on this path: {counts}")
+    del dense
+    torch.cuda.empty_cache()
+    return {"prefill_tps": n_prefill / d_s, "ms_per_token": ms1,
+            "ms_per_token_t16": ms16, "launches": prof["launches"],
+            "idle": 1 - prof["busy_ms"] / prof["wall_ms"],
+            "park_fixed": fixed, "park_per_token": per_tok,
+            "bound_ms": (sb["lo_ms"], sb["hi_ms"]), "chunk": chunk,
+            "spec": spec}
+
+
+# ---------------------------------------------------------------------------
 # the launch floor: device time of a kernel that does nothing
 # ---------------------------------------------------------------------------
 
@@ -3640,6 +4048,9 @@ def main() -> int:
     phase("spec", phase_spec, get_config("olmo-1b"), dev, smi)
     phase("spec deepseek", phase_spec, deepseek, dev, smi,
           depth_note=deepseek_note)
+    phase("recurrent", phase_recurrent, get_config("rwkv6-1.6b"), dev, smi)
+    phase("recurrent zamba", phase_recurrent, get_config("zamba2-1.2b"),
+          dev, smi)
     if args.compare_with is not None:
         phase("compare", phase_compare, dev, audio_cfg, cfg,
               args.compare_with.resolve())

@@ -2,27 +2,34 @@
 fixed grid.  The twin of ``examples/serve_lm_sessions.py``:
 
   * chunked prefill: ``open_session`` feeds the prompt through multi-token
-    cached steps in power-of-two chunks;
+    cached steps in power-of-two chunks (the recurrent families, RWKV and
+    the zamba hybrid, feed it token by token in the first decode instead:
+    their chunk forms are not bit for bit the steps);
   * chunked multi-token decode: one dispatch advances every pushed session
     by up to t_chunk greedy tokens;
   * speculative decode: the n-gram self-drafter proposes K tokens per lane
     and one dispatch verifies them (``repro_torch.sessions.spec``); the
-    scan mode is bit-identical to plain decode for any drafter, the
-    parallel mode verifies all K+1 positions in one multi-token step;
+    scan mode is bit-identical to plain decode for any drafter (on the
+    recurrent families through the alive-masked verify scan, which rolls
+    their state back by value), the parallel mode verifies all K+1
+    positions in one multi-token step (pure-KV families only);
   * oversubscription: opening more sessions than slots parks an idle one
     to a host blob truncated to its position (O(pos) bytes);
   * bit-identical resume, spill to disk and restore into a fresh service;
   * the async serving plane: concurrent clients batched into shared
     dispatches.
 
-``--config`` picks the model: olmo-1b (GQA, dense) or deepseek-v2-lite-16b
-(MLA attention, MoE FFN), both cut narrow and shallow, seeded random
-weights.  It runs on the card; ``--device cpu`` runs the same code on the
-CPU.
+``--config`` picks the model: olmo-1b (GQA, dense), deepseek-v2-lite-16b
+(MLA attention, MoE FFN), rwkv6-1.6b (recurrent wkv state) or zamba2-1.2b
+(Mamba2 layers and a shared attention block), all cut narrow and
+shallow, seeded random weights.  It runs on the card; ``--device cpu``
+runs the same code on the CPU.
 
     PYTHONPATH=src python examples/serve_lm_sessions_torch.py
     PYTHONPATH=src python examples/serve_lm_sessions_torch.py \\
         --config deepseek-v2-lite-16b --speculative 4 --device cpu
+    PYTHONPATH=src python examples/serve_lm_sessions_torch.py \\
+        --config zamba2-1.2b --device cpu
 """
 
 import argparse
@@ -43,7 +50,7 @@ from repro_torch.sessions import (
     parked_bytes,
 )
 
-CONFIGS = ("olmo-1b", "deepseek-v2-lite-16b")
+CONFIGS = ("olmo-1b", "deepseek-v2-lite-16b", "rwkv6-1.6b", "zamba2-1.2b")
 VOCAB = 64
 
 
@@ -58,7 +65,7 @@ def main():
     args = ap.parse_args()
 
     cfg = get_config(args.config).smoke().replace(
-        n_layers=2, d_model=32, d_ff=64, vocab_size=VOCAB)
+        n_layers=2, d_model=32, d_ff=64, vocab_size=VOCAB, rwkv_head_dim=16)
     bundle = build_bundle(cfg, args.device)
     dev = bundle.device
     params = bundle.init(torch.Generator(device=dev).manual_seed(0))
@@ -75,13 +82,17 @@ def main():
     rng = np.random.default_rng(0)
     d0 = svc.dispatches
     a = svc.open_session(rng.integers(0, VOCAB, size=33).astype(np.int32))
-    print(f"   33-token prompt chunk-prefilled in {svc.dispatches - d0} "
-          "dispatches (power-of-two chunks)")
+    if svc.parallel_safe:
+        print(f"   33-token prompt chunk-prefilled in {svc.dispatches - d0} "
+              "dispatches (power-of-two chunks)")
+    else:
+        print("   recurrent cache: the 33-token prompt is fed token by token "
+              "by the first decode")
     b = svc.open_session(rng.integers(0, VOCAB, size=3).astype(np.int32))
     d0 = svc.dispatches
     out = svc.push({a: 24, b: 24})
     print(f"   2 sessions x 24 tokens in {svc.dispatches - d0} dispatches "
-          f"(vs 24 per-token)")
+          f"(vs {24 + (0 if svc.parallel_safe else 33 - 1)} per-token)")
     print(f"   a: {out[a][:8]}...  b: {out[b][:8]}...")
 
     print(f"== speculative decode ({args.verify}): draft "
@@ -104,7 +115,8 @@ def main():
     parked = [s for s in (a, b) if svc.poll(s)["state"] == "parked"]
     blob = parked_bytes(svc.parking[parked[0]])
     print(f"   opened a 3rd session on a 2-slot grid -> session "
-          f"{parked[0]} parked ({blob} host bytes, O(pos) cache column)")
+          f"{parked[0]} parked ({blob} host bytes: KV rows up to its "
+          "position, recurrent state whole)")
     svc.decode({c: 8})
     resumed = svc.decode({parked[0]: 8})[parked[0]]
     print(f"   resumed {parked[0]} bit-identically: {resumed[:8]}")

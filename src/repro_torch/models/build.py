@@ -1,11 +1,13 @@
 """Model bundles: one functional API per architecture family.
 
 The port of ``repro/models/build.py`` for the ``tcn`` family, the
-``dense`` LM family (olmo-1b, stablelm-1.6b, qwen2.5-32b, command-r-35b)
-and the ``moe`` family (deepseek-v2-lite-16b with MLA attention,
-moonshot-v1-16b-a3b with GQA); ``build_bundle`` raises
-``NotImplementedError`` for the families later slices bring, so a
-rwkv/hybrid/vlm/audio config never builds something else.
+``dense`` LM family (olmo-1b, stablelm-1.6b, qwen2.5-32b, command-r-35b),
+the ``moe`` family (deepseek-v2-lite-16b with MLA attention,
+moonshot-v1-16b-a3b with GQA), ``rwkv`` (rwkv6-1.6b) and the ``hybrid``
+Mamba2 stack with one shared attention block (zamba2-1.2b);
+``build_bundle`` raises ``NotImplementedError`` for the vlm and audio
+families, which a later slice brings, so such a config never builds
+something else.
 
 A ``Bundle`` carries the config, the param defs, the device its tensors
 live on and the functions:
@@ -22,9 +24,15 @@ live on and the functions:
     ``embed_fn`` (mean final hidden state).  The cache is the reference's
     tree: {"dense": …, "moe": …} for the two layer stacks (a stack the
     config lacks is absent), each {"k", "v"} (GQA) or {"c_kv", "k_rope"}
-    (MLA).  Cached calls write the cache
-    in place and return it; ``pos`` is an int, or a tensor 0-d or per
-    lane (B,).  LM training (``loss_fn``) comes with a later slice.
+    (MLA); RWKV's {"x_prev_t", "x_prev_c" (L, B, D), "state" (L, B, H,
+    Dh, Dh) fp32}; zamba's {"mamba": {"conv" (L, B, K-1, C), "ssm" (L,
+    B, H, N, P) fp32}, "attn": {"k", "v"} (n_apps, B, S, Hkv, Dh)}, one
+    KV cache per application site of the shared block.  Cached calls
+    write position-indexed leaves (K/V rows) in place and return new
+    tensors for recurrent leaves, leaving the given ones as they were
+    (the session layer masks those by value); ``pos`` is an int, or a
+    tensor 0-d or per lane (B,).  LM training (``loss_fn``) comes with a
+    later slice.
 """
 
 from __future__ import annotations
@@ -37,15 +45,31 @@ import torch
 from repro_torch.kernels.dispatch import require_device
 from repro_torch.models import tcn as tcn_mod
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.params import init_params
+from repro_torch.models.layers import apply_norm, layernorm, rope_angles
+from repro_torch.models.params import ParamDef, init_params
+from repro_torch.models.rwkv import (
+    rwkv_empty_cache,
+    rwkv_layer,
+    rwkv_layer_param_defs,
+)
+from repro_torch.models.ssm import (
+    mamba_empty_cache,
+    mamba_layer,
+    mamba_param_defs,
+)
 from repro_torch.models.transformer import (
     act_dtype,
     backbone,
     embed_tokens,
+    layer_fwd,
+    layer_param_defs,
     logits_all,
     logits_last,
     model_param_defs,
+    norm_param_defs,
+    stack_defs,
     stack_sizes,
+    unstack_layers,
 )
 
 
@@ -133,7 +157,15 @@ def make_empty_cache(cfg: ArchConfig, B: int, S: int, dtype=torch.bfloat16,
                      device="cuda") -> dict:
     """Zeroed cache: {"dense": …, "moe": …} per layer stack, each GQA's
     {"k", "v"} (L, B, S, Hkv, Dh) or MLA's {"c_kv" (L, B, S, r),
-    "k_rope" (L, B, S, 1, dr)}."""
+    "k_rope" (L, B, S, 1, dr)}; the recurrent families' trees (module
+    docstring)."""
+    if cfg.family == "rwkv":
+        return rwkv_empty_cache(cfg, B, dtype, device)
+    if cfg.family == "hybrid":
+        return {"mamba": mamba_empty_cache(cfg, cfg.n_layers, B, dtype,
+                                           device),
+                "attn": _kv_cache(cfg, _zamba_n_apps(cfg), B, S, dtype,
+                                  device)}
     per = _mla_cache if cfg.use_mla else _kv_cache
     n_moe, n_dense = stack_sizes(cfg)
     out = {}
@@ -150,6 +182,12 @@ def _as_pos(pos, dev):
     if isinstance(pos, torch.Tensor):
         return pos.to(dev, torch.int32)
     return torch.as_tensor(pos, dtype=torch.int32).to(dev)
+
+
+def _lm_loss_fn(params, batch):
+    raise NotImplementedError(
+        "LM training (loss_fn, chunked_cross_entropy, the norms' "
+        "backward) comes with the LM training slice")
 
 
 def build_lm_bundle(cfg: ArchConfig, device="cuda") -> Bundle:
@@ -177,33 +215,193 @@ def build_lm_bundle(cfg: ArchConfig, device="cuda") -> Bundle:
         x = embed_tokens(params, cfg, batch["tokens"])
         return backbone(params, cfg, x, 0, None)[0].mean(dim=1)
 
-    def loss_fn(params, batch):
-        raise NotImplementedError(
-            "LM training (loss_fn, chunked_cross_entropy, the norms' "
-            "backward) comes with the LM training slice")
-
     return Bundle(
         cfg=cfg, param_defs=defs, device=dev, embed_fn=embed_fn,
-        loss_fn=loss_fn, prefill_fn=prefill_fn, decode_fn=decode_fn,
+        loss_fn=_lm_loss_fn, prefill_fn=prefill_fn, decode_fn=decode_fn,
         step_fn=step_fn,
+        empty_cache=lambda B, S: make_empty_cache(cfg, B, S, adt, dev),
+        cache_specs=lambda B, S: make_empty_cache(cfg, B, S, adt, "meta"))
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 bundle
+# ---------------------------------------------------------------------------
+
+def _layer_list(layers) -> list:
+    """A stacked layer tree as per-layer views, or a baked list as it is."""
+    return unstack_layers(layers) if isinstance(layers, dict) else layers
+
+
+def _stacked(per_layer: list) -> dict:
+    """Per-layer cache dicts -> one dict of (L, ...) stacked leaves."""
+    return {k: torch.stack([c[k] for c in per_layer])
+            for k in per_layer[0]}
+
+
+def rwkv_model_param_defs(cfg: ArchConfig) -> dict:
+    D, V = cfg.d_model, cfg.vocab_size
+    return {
+        "embed": ParamDef((V, D), ("vocab", "embed"), init="embed"),
+        "ln_in": {"w": ParamDef((D,), ("embed",), init="ones"),
+                  "b": ParamDef((D,), ("embed",), init="zeros")},
+        "layers": stack_defs(rwkv_layer_param_defs(cfg), cfg.n_layers),
+        "final_norm": {"w": ParamDef((D,), ("embed",), init="ones"),
+                       "b": ParamDef((D,), ("embed",), init="zeros")},
+        "lm_head": ParamDef((D, V), ("embed", "vocab")),
+    }
+
+
+def _rwkv_forward(params, cfg, x, cache):
+    """Input norm, the layers in order, final norm.  Returns (hidden, a new
+    cache tree); ``cache`` is not written."""
+    x = layernorm(x, params["ln_in"]["w"], params["ln_in"]["b"])
+    new = []
+    for i, p in enumerate(_layer_list(params["layers"])):
+        x, c = rwkv_layer(p, cfg, x, {k: v[i] for k, v in cache.items()})
+        new.append(c)
+    x = layernorm(x, params["final_norm"]["w"], params["final_norm"]["b"])
+    return x, _stacked(new)
+
+
+def build_rwkv_bundle(cfg: ArchConfig, device="cuda") -> Bundle:
+    dev = require_device(device)
+    adt = act_dtype(cfg)
+
+    def prefill_fn(params, batch):
+        x = embed_tokens(params, cfg, batch["tokens"])
+        cache = rwkv_empty_cache(cfg, x.shape[0], x.dtype, dev)
+        h, cache = _rwkv_forward(params, cfg, x, cache)
+        return logits_last(params, cfg, h), cache
+
+    def step_fn(params, cache, batch):
+        # the chunked WKV form: the recurrence reassociated, not bit for bit
+        # S decode steps (the session layer prefills these token by token)
+        x = embed_tokens(params, cfg, batch["tokens"])
+        h, cache = _rwkv_forward(params, cfg, x, cache)
+        return logits_all(params, cfg, h), cache
+
+    def decode_fn(params, cache, batch):
+        x = embed_tokens(params, cfg, batch["tokens"])
+        h, cache = _rwkv_forward(params, cfg, x, cache)
+        return logits_last(params, cfg, h), cache
+
+    def embed_fn(params, batch):
+        x = embed_tokens(params, cfg, batch["tokens"])
+        h, _ = _rwkv_forward(params, cfg, x,
+                             rwkv_empty_cache(cfg, x.shape[0], x.dtype, dev))
+        return h.mean(dim=1)
+
+    return Bundle(
+        cfg=cfg, param_defs=rwkv_model_param_defs(cfg), device=dev,
+        embed_fn=embed_fn, loss_fn=_lm_loss_fn, prefill_fn=prefill_fn,
+        decode_fn=decode_fn, step_fn=step_fn,
+        empty_cache=lambda B, S: rwkv_empty_cache(cfg, B, adt, dev),
+        cache_specs=lambda B, S: rwkv_empty_cache(cfg, B, adt, "meta"))
+
+
+# ---------------------------------------------------------------------------
+# Zamba2 hybrid bundle (Mamba2 stack + one shared attention block)
+# ---------------------------------------------------------------------------
+
+def _zamba_n_apps(cfg: ArchConfig) -> int:
+    return -(-cfg.n_layers // cfg.attn_every)
+
+
+def zamba_model_param_defs(cfg: ArchConfig) -> dict:
+    D, V = cfg.d_model, cfg.vocab_size
+    return {
+        "embed": ParamDef((V, D), ("vocab", "embed"), init="embed"),
+        "layers": stack_defs(mamba_param_defs(cfg), cfg.n_layers),
+        "shared_attn": layer_param_defs(cfg, moe=False),  # ONE shared block
+        "final_norm": norm_param_defs(cfg),
+        "lm_head": ParamDef((D, V), ("embed", "vocab")),
+    }
+
+
+def _zamba_forward(params, cfg, x, cache, pos):
+    """The Mamba stack with the shared attention block before each segment
+    of ``attn_every`` layers (one set of weights, a KV cache per
+    application site).  ``cache`` None: no cache (zero Mamba states, no
+    KV).  Returns (hidden, new cache): the Mamba leaves new tensors, the
+    KV leaves the given ones, written in place."""
+    B, S, _ = x.shape
+    ar = torch.arange(S, device=x.device)
+    positions = ar + (pos.reshape(-1, 1) if isinstance(pos, torch.Tensor)
+                      and pos.dim() else pos)
+    rope = rope_angles(positions, int(cfg.dh * cfg.rotary_frac),
+                       cfg.rope_theta)
+    L, E = cfg.n_layers, cfg.attn_every
+    layers = _layer_list(params["layers"])
+    mcache = mamba_empty_cache(cfg, L, B, x.dtype, x.device) \
+        if cache is None else cache["mamba"]
+    new = []
+    for app in range(_zamba_n_apps(cfg)):
+        ac = None if cache is None \
+            else {k: v[app] for k, v in cache["attn"].items()}
+        x, _ = layer_fwd(params["shared_attn"], cfg, x, rope, ac, pos)
+        for i in range(app * E, min((app + 1) * E, L)):
+            x, c = mamba_layer(layers[i], cfg, x,
+                               {k: v[i] for k, v in mcache.items()})
+            new.append(c)
+    x = apply_norm(cfg.norm_type, params, "final_norm", x)
+    if cache is None:
+        return x, None
+    return x, {"mamba": _stacked(new), "attn": cache["attn"]}
+
+
+def build_zamba_bundle(cfg: ArchConfig, device="cuda") -> Bundle:
+    dev = require_device(device)
+    adt = act_dtype(cfg)
+
+    def prefill_fn(params, batch):
+        x = embed_tokens(params, cfg, batch["tokens"])
+        cache = make_empty_cache(cfg, x.shape[0], x.shape[1], adt, dev)
+        h, cache = _zamba_forward(params, cfg, x, cache, 0)
+        return logits_last(params, cfg, h), cache
+
+    def step_fn(params, cache, batch):
+        # chunked SSD: reassociated against ssd_step, as RWKV's step_fn
+        x = embed_tokens(params, cfg, batch["tokens"])
+        h, cache = _zamba_forward(params, cfg, x, cache,
+                                  _as_pos(batch["pos"], dev))
+        return logits_all(params, cfg, h), cache
+
+    def decode_fn(params, cache, batch):
+        x = embed_tokens(params, cfg, batch["tokens"])
+        h, cache = _zamba_forward(params, cfg, x, cache,
+                                  _as_pos(batch["pos"], dev))
+        return logits_last(params, cfg, h), cache
+
+    def embed_fn(params, batch):
+        x = embed_tokens(params, cfg, batch["tokens"])
+        return _zamba_forward(params, cfg, x, None, 0)[0].mean(dim=1)
+
+    return Bundle(
+        cfg=cfg, param_defs=zamba_model_param_defs(cfg), device=dev,
+        embed_fn=embed_fn, loss_fn=_lm_loss_fn, prefill_fn=prefill_fn,
+        decode_fn=decode_fn, step_fn=step_fn,
         empty_cache=lambda B, S: make_empty_cache(cfg, B, S, adt, dev),
         cache_specs=lambda B, S: make_empty_cache(cfg, B, S, adt, "meta"))
 
 
 # the slice of the port that brings each family not built here
 _LATER = {
-    "rwkv": "the recurrent-cache slice (models/rwkv.py)",
-    "hybrid": "the recurrent-cache slice (models/ssm.py, the zamba hybrid)",
     "vlm": "the vlm/audio front-end and encoder-decoder slice",
     "audio": "the vlm/audio front-end and encoder-decoder slice",
 }
 
+BUILDERS = {
+    "tcn": build_tcn_bundle,
+    "dense": build_lm_bundle,
+    "moe": build_lm_bundle,
+    "rwkv": build_rwkv_bundle,
+    "hybrid": build_zamba_bundle,
+}
+
 
 def build_bundle(cfg: ArchConfig, device="cuda") -> Bundle:
-    if cfg.family == "tcn":
-        return build_tcn_bundle(cfg, device)
-    if cfg.family in ("dense", "moe"):
-        return build_lm_bundle(cfg, device)
+    if cfg.family in BUILDERS:
+        return BUILDERS[cfg.family](cfg, device)
     if cfg.family in _LATER:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet; it comes "

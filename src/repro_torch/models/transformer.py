@@ -28,7 +28,9 @@ splits the stacked layers into per-layer views: the reference casts each
 fp32 weight at every use, which is the same bits, and on the card would
 re-read the fp32 tree every step.  The MoE router is the exception: the
 reference casts it to fp32 at each use, so it stays fp32 (a bf16 router
-would route otherwise).
+would route otherwise), and so do the leaves the recurrent families cast
+to fp32 at their use (RWKV's decay base, bonus and group-norm affine,
+Mamba's ``a_log`` and ``dt_bias``).
 """
 
 from __future__ import annotations
@@ -47,6 +49,8 @@ from repro_torch.models.layers import (
 )
 from repro_torch.models.moe import moe_ffn, moe_param_defs
 from repro_torch.models.params import ParamDef, map_defs
+from repro_torch.models.rwkv import FP32_KEYS as RWKV_FP32
+from repro_torch.models.ssm import FP32_KEYS as SSM_FP32
 from repro_torch.utils.trees import tree_leaves, tree_map
 
 
@@ -163,18 +167,22 @@ def unstack_layers(stacked) -> list:
     return [tree_map(lambda a, i=i: a[i], stacked) for i in range(n)]
 
 
+# leaves every family's forward casts to fp32 at their use
+FP32_LEAVES = frozenset(("router",) + RWKV_FP32 + SSM_FP32)
+
+
 def _bake(node, dtype, key=None):
     if isinstance(node, dict):
         return {k: _bake(v, dtype, k) for k, v in node.items()}
-    return node.float() if key == "router" else node.to(dtype)
+    return node.float() if key in FP32_LEAVES else node.to(dtype)
 
 
 def bake_lm_params(params: dict, cfg: ArchConfig) -> dict:
     """The serving tree: every leaf cast once to the activation dtype
-    (bit-identical to the reference's cast at each use), the MoE router
-    kept fp32 (the reference's cast at its use), and each layer stack as
-    a list of per-layer views.  Idempotent: a baked tree comes back as it
-    is."""
+    (bit-identical to the reference's cast at each use), the leaves the
+    reference casts to fp32 at their use kept fp32 (``FP32_LEAVES``), and
+    each layer stack as a list of per-layer views.  Idempotent: a baked
+    tree comes back as it is."""
     dtype = act_dtype(cfg)
     stacks = [name for name, _, _ in STACKS]
     out = {k: _bake(v, dtype) for k, v in params.items() if k not in stacks}

@@ -3,8 +3,9 @@
 The port of ``repro/serving/engine.py``.  Both keep a fixed batch shape and
 move requests on and off slots between steps.
 
-``LMServer`` wraps ``sessions/lm.LMSessionService`` (per-lane positions,
-chunked decode dispatches, chunked prefill, KV park/resume, seq_cap
+``LMServer`` wraps ``sessions/lm.LMSessionService`` (every LM family the
+port builds: per-lane positions, chunked decode dispatches, chunked
+prefill where every cache leaf is position-indexed, park/resume, seq_cap
 retirement) behind the historical ``add_request``/``step``/``outputs``/
 ``finish`` surface.  ``ServeConfig`` sizes it: the paper's dual mode maps
 to a full batch ("throughput") or a quarter of it ("low-power").  By
@@ -13,7 +14,7 @@ raises (back-pressure); a larger ``max_sessions`` oversubscribes the grid
 with eviction to the host parking lot.  ``speculative=K > 0`` decodes
 through ``sessions/spec.SpeculativeDecoder`` (K-token self-drafts per lane,
 verified in one dispatch; ``spec_verify`` "scan" is bit-identical to plain
-greedy decode, "parallel" is the throughput mode).
+greedy decode, "parallel" is the throughput mode of the pure-KV families).
 
 ``TCNStreamServer`` wraps
 ``sessions/service.StreamSessionService``: one session per stream, all

@@ -4,7 +4,7 @@ LM prefix registry), bankpool.py (paged banks), rehearsal.py (the u4
 replay buffer), scheduler.py, service.py (the TCN
 ``StreamSessionService``), lm.py (``LMSessionService``, KV-cache serving)
 and spec.py (``SpeculativeDecoder``, ``ngram_drafter``: speculative
-decoding of the pure-KV bundles).
+decoding of every LM family the port builds).
 
 ``StreamSessionService`` and ``LMSessionService`` conform to the
 structural ``SessionService``
@@ -38,6 +38,8 @@ from repro_torch.sessions.spec import (
     SpeculativeDecoder,
     make_verify_chunk,
     make_verify_chunk_paged,
+    make_verify_scan,
+    make_verify_scan_paged,
     ngram_drafter,
 )
 from repro_torch.sessions.state import (
@@ -120,7 +122,8 @@ __all__ = [
     "PagedBankPool", "paged_bank_fc", "NULL_BLOCK", "BlockPool",
     "PoolExhausted", "PrefixCache", "prefix_keys", "LMSessionService",
     "pow2_chunks", "SpeculativeDecoder", "make_verify_chunk",
-    "make_verify_chunk_paged", "ngram_drafter", "RehearsalBuffer", "AdmissionError", "CapacityError",
+    "make_verify_chunk_paged", "make_verify_scan", "make_verify_scan_paged",
+    "ngram_drafter", "RehearsalBuffer", "AdmissionError", "CapacityError",
     "SlotScheduler", "NO_TENANT", "SessionRecord", "SlotGridService",
     "StreamSessionService", "decode_parked", "grid_init", "grid_scan",
     "grid_step", "lengths_to_valid", "make_grid_fused", "pack_slot",

@@ -1,14 +1,14 @@
 """LM serving sessions: KV-cache park/resume, chunked multi-token decode,
 chunked prefill, paged KV with copy-on-write prefix sharing.
 
-The port of ``repro/sessions/lm.py`` (the pure-KV families: dense and
-MoE, GQA or MLA caches; ``mesh=`` is not ported: the port runs on one
-card).  The slot-grid virtualization of the TCN service applies — more
-sessions than slots, LRU/cost eviction to a host parking lot,
-bit-identical resume in any slot — but a slot's state is a KV-cache
-column (every cache leaf sliced along its session axis) and a tick is a
-token chunk: ``decode_scan`` runs up to ``t_chunk`` greedy decode
-steps of every lane per dispatch.
+The port of ``repro/sessions/lm.py`` (every LM family the port builds:
+dense and MoE with GQA or MLA caches, RWKV, the zamba hybrid; ``mesh=``
+is not ported: the port runs on one card).  The slot-grid
+virtualization of the TCN service applies — more sessions than slots,
+LRU/cost eviction to a host parking lot, bit-identical resume in any
+slot — but a slot's state is a cache column (every cache leaf sliced
+along its session axis) and a tick is a token chunk: ``decode_scan``
+runs up to ``t_chunk`` greedy decode steps of every lane per dispatch.
 
 Per-lane positions.  The reference runs each lane as a ``jax.vmap`` body
 of a B=1 decode at its own ``pos``.  Here one batched ``decode_fn`` call
@@ -22,10 +22,18 @@ rule is kept exactly: a masked step still writes its (never read) K/V at
 the lane's frozen position, so every bound lane must be passed its TRUE
 position even when it is not decoded (position 0 would overwrite live
 history).  A MoE FFN allocates expert capacity per sequence, so a lane's
-routing is its own too.  These families have no recurrent cache leaf; a
-bundle with one
-(RWKV, Mamba: value-masked in the reference) is refused until the slice
-that brings those families.
+routing is its own too.
+
+Recurrent leaves (RWKV's token-shift rows and wkv state, Mamba's conv
+ring and ssm state: no sequence axis) change at every step, so they are
+masked by value: the bundle's cached call returns them as new tensors and
+leaves the old ones intact, and the scan keeps ``torch.where(valid, new,
+old)`` per lane.  A service with such a leaf is not ``parallel_safe``: the
+chunk forms of these recurrences are reassociated, so it has no chunked
+prefill and no prefix sharing, and ``open_session`` feeds nothing: the
+first ``decode`` feeds the whole prompt as forced tokens.  Its parked blob
+holds every recurrent leaf whole beside the KV rows [0, pos)
+(``kv_park_bytes`` = a fixed part + a part per position).
 
 Chunked prefill.  ``open_session`` feeds all but the last prompt token
 through the bundle's multi-token ``step_fn`` in largest-first power-of-two
@@ -39,9 +47,11 @@ jax 0.9's CPU).  Held instead: layer 0's K/V within one bf16 ulp of the
 layer's scale, every layer's K/V and the next-step logits within 5e-2 of
 their scale; at full depth the greedy streams may part at near ties.
 
-Paged KV (``paged=True``).  Every cache leaf becomes a shared block pool
-(sessions/state.make_pools) read through per-lane int32 block tables; a
-parked session owns no device block.  A decode dispatch gathers every
+Paged KV (``paged=True``).  Every cache leaf with a sequence axis becomes
+a shared block pool (sessions/state.make_pools) read through per-lane
+int32 block tables; recurrent leaves stay dense per slot, and a bundle
+with no sequence-axis leaf (RWKV) stays dense altogether.  A parked
+session owns no device block.  A decode dispatch gathers every
 lane's table row into the exact dense column once (state.gather_column),
 runs the dense scan on it, and writes back each lane's rows [pos,
 pos + T) through its table (unowned blocks map to the NULL block 0, which
@@ -86,18 +96,44 @@ from repro_torch.sessions.state import (
     map_tree,
     pack_blocks,
     pack_column,
+    paged_flags,
     scatter_rows,
     unpack_blocks,
     unpack_column,
 )
+from repro_torch.utils.host import to_host
 from repro_torch.utils.trees import tree_leaves
 
 
-def make_decode_scan(decode_fn):
+def lane_select(valid, new, old, bax: int):
+    """``torch.where(valid, new, old)`` per lane of a leaf whose session
+    axis is ``bax``: the value mask of a recurrent leaf."""
+    shape = (1,) * bax + (-1,) + (1,) * (new.dim() - bax - 1)
+    return torch.where(valid.reshape(shape), new, old)
+
+
+def recurrent_flags(seq_axes):
+    """Per-leaf bool tree: True where the leaf has no sequence axis (it is
+    carried by value); None when no leaf is recurrent."""
+    flags = map_tree(lambda sax: sax < 0, seq_axes)
+    return flags if any(tree_leaves(flags)) else None
+
+
+def mask_recurrent(valid, new, old, batch_axes, rec):
+    """The per-leaf masking of one step: KV leaves as the step left them
+    (masked by position), recurrent leaves ``lane_select``-ed."""
+    if rec is None:
+        return new
+    return map_tree(lambda n, o, bax, r: lane_select(valid, n, o, bax)
+                    if r else n, new, old, batch_axes, rec)
+
+
+def make_decode_scan(decode_fn, batch_axes, seq_axes):
     """A chunked greedy decoder from a bundle's batched single-step
     decode.  Returns ``scan(params, cache, tok, pos, inp, n_inp, n_steps)``:
 
-      cache               the batched cache (written in place)
+      cache               the batched cache (KV leaves written in place,
+                          recurrent leaves replaced)
       tok     (S,) i32    pending feedback token per lane
       pos     (S,) i32    per-lane position (every bound lane's TRUE one)
       inp     (S, T) i32  forced (prompt) tokens, consumed left to right
@@ -106,17 +142,23 @@ def make_decode_scan(decode_fn):
 
     Step j of lane s feeds ``inp[s, j]`` while ``j < n_inp[s]``, else the
     previous argmax, at position ``pos[s]`` (advanced by valid steps
-    only).  Returns ``(cache, tok, pos, y (S, T) i32)``, ``y[s, j]`` the
-    argmax after step j (callers mask by their emission rule)."""
+    only).  KV leaves are masked by position (a masked step writes its row
+    at the lane's frozen position, never read); leaves without a sequence
+    axis (``seq_axes`` -1) are masked by value (``lane_select`` of the
+    step's new tensors against the old, which the step left intact).
+    Returns ``(cache, tok, pos, y (S, T) i32)``, ``y[s, j]`` the argmax
+    after step j (callers mask by their emission rule)."""
+    rec = recurrent_flags(seq_axes)
 
     def scan(params, cache, tok, pos, inp, n_inp, n_steps):
         ys = []
         for j in range(inp.shape[1]):
             t = torch.where(j < n_inp, inp[:, j], tok)
-            logits, cache = decode_fn(params, cache,
-                                      {"tokens": t[:, None], "pos": pos})
+            logits, new = decode_fn(params, cache,
+                                    {"tokens": t[:, None], "pos": pos})
             y = torch.argmax(logits, dim=-1).to(torch.int32)
             v = j < n_steps
+            cache = mask_recurrent(v, new, cache, batch_axes, rec)
             tok = torch.where(v, y, tok)
             pos = torch.where(v, pos + 1, pos)
             ys.append(y)
@@ -125,35 +167,49 @@ def make_decode_scan(decode_fn):
     return scan
 
 
+def gather_columns(cache, tables, batch_axes, seq_axes):
+    """Every lane's dense column of each pool leaf of a paged cache (its
+    table row gathered); recurrent leaves, dense already, as they are."""
+    return map_tree(lambda a, bax, sax: gather_column(a, tables, bax)
+                    if sax >= 0 else a, cache, batch_axes, seq_axes)
+
+
+def scatter_columns(cache, cols, tables, pos0, n: int, batch_axes,
+                    seq_axes):
+    """Write rows [pos0, pos0 + n) of every lane (clipped to the column)
+    of each pool leaf back through the lanes' tables, in place; a
+    recurrent leaf becomes the columns' (value-masked) one.  Returns the
+    cache tree."""
+    def put(a, c, bax, sax):
+        if sax < 0:
+            return c
+        rows = torch.clamp(pos0[:, None].long() + torch.arange(
+            n, device=a.device), max=c.shape[sax] - 1)
+        scatter_rows(a, c, tables, rows, bax)
+        return a
+
+    return map_tree(put, cache, cols, batch_axes, seq_axes)
+
+
 def make_decode_scan_paged(decode_fn, batch_axes, seq_axes):
     """Paged twin of ``make_decode_scan``: ``scan(params, cache, tables,
     tok, pos, inp, n_inp, n_steps)`` with ``tables`` (S, max_blocks) int32
-    and every leaf of ``cache`` a shared pool.  Each lane's table row is
-    gathered into its exact dense column once, the dense scan runs on the
-    columns, and each lane's rows [pos, pos + T) (clipped to the column)
-    go back through its table: its own blocks get their bytes (new rows
-    and untouched ones alike), unowned entries the NULL block.  Shared
-    prefix blocks lie below every lane's position, so no write reaches
-    them."""
-    dense = make_decode_scan(decode_fn)
+    and every sequence-axis leaf of ``cache`` a shared pool (recurrent
+    leaves stay dense per slot).  Each lane's table row is gathered into
+    its exact dense column once, the dense scan runs on the columns, and
+    each lane's rows [pos, pos + T) (clipped to the column) go back
+    through its table: its own blocks get their bytes (new rows and
+    untouched ones alike), unowned entries the NULL block.  Shared prefix
+    blocks lie below every lane's position, so no write reaches them."""
+    dense = make_decode_scan(decode_fn, batch_axes, seq_axes)
 
     def scan(params, cache, tables, tok, pos, inp, n_inp, n_steps):
-        cols = map_tree(lambda a, bax: gather_column(a, tables, bax),
-                        cache, batch_axes)
-        pos0 = pos
-        cols, tok, pos, ys = dense(params, cols, tok, pos, inp, n_inp,
-                                   n_steps)
-        T = inp.shape[1]
-
-        def put(a, c, bax, sax):
-            s_max = c.shape[sax]
-            rows = torch.clamp(pos0[:, None].long() + torch.arange(
-                T, device=a.device), max=s_max - 1)
-            scatter_rows(a, c, tables, rows, bax)
-            return a
-
-        map_tree(put, cache, cols, batch_axes, seq_axes)
-        return cache, tok, pos, ys
+        cols = gather_columns(cache, tables, batch_axes, seq_axes)
+        cols, tok2, pos2, ys = dense(params, cols, tok, pos, inp, n_inp,
+                                     n_steps)
+        cache = scatter_columns(cache, cols, tables, pos, inp.shape[1],
+                                batch_axes, seq_axes)
+        return cache, tok2, pos2, ys
 
     return scan
 
@@ -257,15 +313,16 @@ class LMSessionService(SlotGridService):
         if any(ax < 0 for ax in tree_leaves(self._batch_axes)):
             raise ValueError("cache has a leaf without a per-session axis; "
                              "cannot virtualize slots")
-        if any(ax < 0 for ax in tree_leaves(self._seq_axes)):
-            raise NotImplementedError(
-                "recurrent cache leaves (RWKV, Mamba) are value-masked and "
-                "prefill token by token; they come with the slice that "
-                "ports those families")
-        # every leaf is position-indexed: chunked prefill and prefix
-        # sharing apply (the reference's parallel_safe)
-        self.parallel_safe = True
-        self.paged = bool(self.runtime.pick("paged", paged))
+        # chunked prefill and prefix sharing only where every leaf is
+        # position-indexed: a recurrent leaf (RWKV, Mamba) advances by
+        # value through a chunk form that is not bit for bit the steps
+        self.parallel_safe = all(sax >= 0
+                                 for sax in tree_leaves(self._seq_axes))
+        # a bundle with no sequence-axis leaf (RWKV) has nothing to page
+        # and silently stays dense
+        self.paged = bool(self.runtime.pick("paged", paged)) and any(
+            sax >= 0 for sax in tree_leaves(self._seq_axes))
+        self._paged_flags = paged_flags(self._batch_axes, self._seq_axes)
         self.block_len = int(block_len)
         if self.paged and self.seq_cap % self.block_len:
             raise ValueError(f"seq_cap={self.seq_cap} must be a multiple "
@@ -280,7 +337,9 @@ class LMSessionService(SlotGridService):
                                     self.device)
             self._table = np.zeros((n_slots, self.max_blocks), np.int32)
             self._blocks: dict[int, list[int]] = {}
-            self._prefix = PrefixCache(self.pool) if prefix_cache else None
+            # a recurrent leaf cannot skip prompt steps by adopting rows
+            self._prefix = (PrefixCache(self.pool)
+                            if prefix_cache and self.parallel_safe else None)
             reg = self.metrics_registry
             reg.gauge("pool_blocks_total", service=self._service_name).set(
                 self.pool.n_blocks)
@@ -293,19 +352,26 @@ class LMSessionService(SlotGridService):
             self._update_pool_gauges()
         else:
             self.cache = bundle.empty_cache(n_slots, self.seq_cap)
-        # closed-form parked footprint: bytes per position of one column
-        self._park_per_pos = 0
-        for leaf, bax in zip(tree_leaves(specs),
-                             tree_leaves(self._batch_axes)):
+        # closed-form parked footprint of one column: sequence-axis leaves
+        # per position, recurrent leaves whole
+        self._park_fixed = self._park_per_pos = 0
+        for leaf, bax, sax in zip(tree_leaves(specs),
+                                  tree_leaves(self._batch_axes),
+                                  tree_leaves(self._seq_axes)):
             per = leaf.numel() // leaf.shape[bax] * leaf.element_size()
-            self._park_per_pos += per // self.seq_cap
+            if sax >= 0:
+                self._park_per_pos += per // self.seq_cap
+            else:
+                self._park_fixed += per
         self.outputs: dict[int, list[int]] = {}
         if self.paged:
             self._decode_scan = make_decode_scan_paged(
                 bundle.decode_fn, self._batch_axes, self._seq_axes)
         else:
-            self._decode_scan = make_decode_scan(bundle.decode_fn)
-        self.prefill_chunk = int(prefill_chunk) if prefill_chunk else 0
+            self._decode_scan = make_decode_scan(
+                bundle.decode_fn, self._batch_axes, self._seq_axes)
+        self.prefill_chunk = int(prefill_chunk) \
+            if prefill_chunk and self.parallel_safe else 0
         if self.prefill_chunk:
             self._prefill_col = (
                 make_prefill_paged(bundle.step_fn, self._batch_axes)
@@ -361,8 +427,9 @@ class LMSessionService(SlotGridService):
         for i in range(max(start // bl, 0), need):
             nb, src = self.pool.writable(bids[i])
             if src is not None:  # shared: clone device bytes src -> nb
-                map_tree(lambda a, bax: copy_block(a, src, nb, bax),
-                         self.cache, self._batch_axes)
+                map_tree(lambda a, bax, pg:
+                         copy_block(a, src, nb, bax) if pg else a,
+                         self.cache, self._batch_axes, self._paged_flags)
                 bids[i] = nb
                 self._table[slot, i] = nb
         self._update_pool_gauges()
@@ -411,14 +478,16 @@ class LMSessionService(SlotGridService):
             return {"kv": pack_column(self.cache, self._batch_axes, slot,
                                       trunc_axes=self._seq_axes,
                                       trunc_len=sess.steps)}
-        # paged park: the blocks covering [0, steps) only, then the
-        # session's device blocks are freed (resume allocates fresh ones);
-        # the [block_len, n_keep] marker makes another layout refuse it
+        # paged park: the blocks covering [0, steps) only (recurrent
+        # leaves: the slot's column whole), then the session's device
+        # blocks are freed (resume allocates fresh ones); the [block_len,
+        # n_keep] marker makes another layout refuse it
         bids = self._blocks.get(sid, [])
         n_keep = min(len(bids), -(-sess.steps // self.block_len))
         keep = bids[:n_keep]
-        blob = map_tree(lambda a, bax: pack_blocks(a, keep, bax),
-                        self.cache, self._batch_axes)
+        blob = map_tree(lambda a, bax, pg: pack_blocks(a, keep, bax) if pg
+                        else to_host(a.select(bax, slot)),
+                        self.cache, self._batch_axes, self._paged_flags)
         self._free_session_blocks(sid)
         self._update_pool_gauges()
         return {"kv": blob,
@@ -434,8 +503,9 @@ class LMSessionService(SlotGridService):
         self._blocks[sid] = bids
         self._table[slot, :] = 0
         self._table[slot, :n_keep] = bids
-        map_tree(lambda a, bax, p: unpack_blocks(a, bids, p, bax),
-                 self.cache, self._batch_axes, blob["kv"])
+        map_tree(lambda a, bax, pg, p: unpack_blocks(a, bids, p, bax) if pg
+                 else unpack_column({"x": a}, {"x": bax}, slot, {"x": p}),
+                 self.cache, self._batch_axes, self._paged_flags, blob["kv"])
         self._update_pool_gauges()
 
     def _reset(self, slot: int) -> None:
@@ -445,9 +515,12 @@ class LMSessionService(SlotGridService):
             return
         # O(1) admission: clearing the host table row makes every stale
         # pool byte unreachable (reads past a lane's kv_len are masked and
-        # the NULL block absorbs masked writes), so nothing is scrubbed
+        # the NULL block absorbs masked writes), so no pool is scrubbed;
+        # recurrent leaves are carried by value, so the slot's are zeroed
         self._blocks[self.sched.sid_of[slot]] = []
         self._table[slot, :] = 0
+        map_tree(lambda a, bax, pg: a if pg else a.select(bax, slot).zero_(),
+                 self.cache, self._batch_axes, self._paged_flags)
 
     def _on_unbind(self, slot: int) -> None:
         # an unbound slot's table row must be all NULL: a masked lane's
@@ -470,15 +543,17 @@ class LMSessionService(SlotGridService):
         return float(self.kv_park_bytes(steps))
 
     def kv_park_bytes(self, pos: int) -> int:
-        """Structural parked footprint of a KV session at position ``pos``
-        (content-independent)."""
-        return self._park_per_pos * min(pos, self.seq_cap)
+        """Structural parked footprint of a session at position ``pos``
+        (content-independent): sequence-axis leaves scale with pos,
+        recurrent leaves count whole."""
+        return self._park_fixed + self._park_per_pos * min(pos, self.seq_cap)
 
     # -- session lifecycle --------------------------------------------------
     def open_session(self, prompt) -> int:
         """Admit a request and chunk-prefill all but its last prompt token
-        (``pow2_chunks`` of at most ``prefill_chunk``; 0 feeds the whole
-        prompt through the first decode's forced-token steps instead).
+        (``pow2_chunks`` of at most ``prefill_chunk``; 0, and every service
+        that is not ``parallel_safe``, feeds the whole prompt through the
+        first decode's forced-token steps instead).
         A paged service first adopts the prompt's registered prefix
         blocks.  ``PoolExhausted`` undoes the admission before it
         propagates."""
@@ -753,7 +828,7 @@ class LMSessionService(SlotGridService):
 
         def check(a, bax, sax, p):
             got = tuple(np.shape(p))
-            if self.paged:
+            if self.paged and sax >= 0:
                 want = a.shape[:bax] + (n_keep,) + a.shape[bax + 1:]
                 ok = got == tuple(want)
             else:
@@ -811,7 +886,8 @@ class LMSessionService(SlotGridService):
         row = self._device_table()[slot][None]
         return map_tree(
             lambda a, bax, sax: pack_column(
-                {"x": gather_column(a, row, bax)}, {"x": bax}, 0,
+                {"x": gather_column(a, row, bax) if sax >= 0 else a},
+                {"x": bax}, 0 if sax >= 0 else slot,
                 trunc_axes={"x": sax}, trunc_len=sess.steps)["x"],
             self.cache, self._batch_axes, self._seq_axes)
 

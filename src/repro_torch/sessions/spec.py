@@ -1,19 +1,26 @@
 """Speculative decoding on the LM slot grid: draft cheap, verify batched.
 
-The port of ``repro/sessions/spec.py`` for the pure-KV bundles (GQA and
-MLA caches, dense and MoE families).  A drafter proposes up to K tokens
-per lane; one slot-grid dispatch verifies them all, accepts the longest
-prefix the model itself would have generated and rolls the lane back to
-the last accepted position.
+The port of ``repro/sessions/spec.py`` for every LM family the port
+builds: the pure-KV bundles (GQA and MLA caches, dense and MoE families)
+and the recurrent ones (RWKV, the zamba hybrid).  A drafter proposes up
+to K tokens per lane; one slot-grid dispatch verifies them all, accepts
+the longest prefix the model itself would have generated and rolls the
+lane back to the last accepted position.
 
 Two verify modes:
 
-  * ``verify="scan"`` (default, exact): the drafts ride the forced-token
-    inputs of the service's OWN decode scan (``service._decode_scan``, the
-    program plain ``decode`` runs), fed ``[tok, draft...]``.  Every live
-    step receives exactly the token plain greedy decode would have fed, so
-    the accepted prefix is bit-identical to ``service.decode`` for any
-    drafter, dense or paged, across park/resume and spills.
+  * ``verify="scan"`` (default, exact): on a pure-KV service the drafts
+    ride the forced-token inputs of the service's OWN decode scan
+    (``service._decode_scan``, the program plain ``decode`` runs), fed
+    ``[tok, draft...]``.  A service with recurrent leaves (not
+    ``parallel_safe``) runs ``make_verify_scan``/``_paged`` instead: the
+    same steps with an ``alive`` mask per lane, which dies at the lane's
+    first mismatch; from then on its recurrent leaves are frozen by value
+    (that freeze is the rollback) and its KV rows stay masked by
+    position.  Every live step receives exactly the token plain greedy
+    decode would have fed, so the accepted prefix is bit-identical to
+    ``service.decode`` for any drafter, dense or paged, across
+    park/resume and spills.
   * ``verify="parallel"`` (throughput): one multi-token cached step
     (``bundle.step_fn``, the chunked-prefill path) computes all K+1 verify
     positions of every lane in one batched call at (n_slots, K+1) with
@@ -26,6 +33,9 @@ Two verify modes:
     true position, over live history, so its rows are saved before the
     step and written back after it (the reference's value mask of an
     inactive lane).  Lanes too close to the cap finish on the plain scan.
+    Pure-KV services only: a recurrent leaf would need a snapshot per
+    step to roll back, so a service that is not ``parallel_safe`` refuses
+    it with ``ValueError``, as the reference does.
 
 Rollback copies nothing: a lane that accepted m of its drafts sets its host
 position to ``pos + m + 1``; rows written past it are dead by position
@@ -33,11 +43,6 @@ position to ``pos + m + 1``; rows written past it are dead by position
 O(pos)).  A paged lane first makes the rows it will write exclusively
 owned (``_ensure_blocks``) and afterwards returns the blocks wholly past
 its position to the pool (``_trim_blocks``).
-
-Bundles with recurrent cache leaves (RWKV, Mamba) roll back by value
-through the reference's alive-masked verify scans
-(``make_verify_scan``/``_paged``); they come with the slice that ports
-those families, and a service that is not ``parallel_safe`` is refused.
 
 Drafters are callbacks ``drafter(history, k) -> <= k tokens`` (history =
 the session's prompt and generated stream, on the host), so a session can
@@ -55,6 +60,12 @@ import numpy as np
 import torch
 
 from repro_torch.obs.device import acceptance_stats
+from repro_torch.sessions.lm import (
+    gather_columns,
+    mask_recurrent,
+    recurrent_flags,
+    scatter_columns,
+)
 from repro_torch.sessions.state import gather_column, map_tree, scatter_rows
 
 
@@ -94,6 +105,69 @@ def ngram_drafter(n: int = 3, window: int = 128):
         return np.asarray(out, np.int32)
 
     return draft
+
+
+# ---------------------------------------------------------------------------
+# Verify scans of the bundles with recurrent leaves
+# ---------------------------------------------------------------------------
+
+def make_verify_scan(decode_fn, batch_axes, seq_axes):
+    """Masked verify scan for bundles with recurrent cache leaves:
+    ``verify(params, cache, tok, pos, draft, n_draft, active)`` with
+
+      tok     (S,)   i32   pending feedback token per lane
+      pos     (S,)   i32   per-lane TRUE position (inactive lanes too)
+      draft   (S, K) i32   proposed tokens, left-aligned
+      n_draft (S,)   i32   valid drafts per lane (<= K)
+      active  (S,)   bool  lanes verified this dispatch
+
+    K + 1 batched steps: step 0 feeds ``tok``, step j >= 1
+    ``draft[:, j - 1]``.  A lane is alive at step j iff it is active and
+    every earlier step's argmax matched its draft; its first mismatch
+    kills it for the rest of the scan.  Recurrent leaves are committed on
+    alive steps only (``lane_select`` by value), so they end at the state
+    of the last accepted position; a dead step writes its KV row at the
+    lane's frozen position, dead by position.  Returns ``(cache, ys (S,
+    K + 1) i32)``; the caller takes the matching prefix m of ``ys``
+    against ``draft`` and emits ``ys[:, :m + 1]``."""
+    rec = recurrent_flags(seq_axes)
+
+    def verify(params, cache, tok, pos, draft, n_draft, active):
+        alive = active
+        ys = []
+        for j in range(draft.shape[1] + 1):
+            t = tok if j == 0 else draft[:, j - 1]
+            logits, new = decode_fn(params, cache,
+                                    {"tokens": t[:, None], "pos": pos})
+            y = torch.argmax(logits, dim=-1).to(torch.int32)
+            cache = mask_recurrent(alive, new, cache, batch_axes, rec)
+            pos = torch.where(alive, pos + 1, pos)
+            if j < draft.shape[1]:
+                alive = alive & (j < n_draft) & (y == draft[:, j])
+            ys.append(y)
+        return cache, torch.stack(ys, dim=1)
+
+    return verify
+
+
+def make_verify_scan_paged(decode_fn, batch_axes, seq_axes):
+    """Paged twin of ``make_verify_scan`` for the hybrid (pooled KV leaves
+    beside dense recurrent ones): ``verify(params, cache, tables, tok,
+    pos, draft, n_draft, active)``.  Every lane's table row is gathered
+    into its dense column once, the dense verify runs on the columns, and
+    each lane's rows [pos, pos + K + 1) go back through its table (the
+    decode scan's discipline: its own blocks get their bytes, unowned
+    entries the NULL block); recurrent leaves come back value-masked."""
+    dense = make_verify_scan(decode_fn, batch_axes, seq_axes)
+
+    def verify(params, cache, tables, tok, pos, draft, n_draft, active):
+        cols = gather_columns(cache, tables, batch_axes, seq_axes)
+        cols, ys = dense(params, cols, tok, pos, draft, n_draft, active)
+        cache = scatter_columns(cache, cols, tables, pos, draft.shape[1] + 1,
+                                batch_axes, seq_axes)
+        return cache, ys
+
+    return verify
 
 
 # ---------------------------------------------------------------------------
@@ -199,17 +273,16 @@ class SpeculativeDecoder:
         if verify not in ("scan", "parallel"):
             raise ValueError(f"verify must be 'scan' or 'parallel', "
                              f"got {verify!r}")
-        if not getattr(service, "parallel_safe", False):
-            raise NotImplementedError(
-                "speculation over recurrent cache leaves (RWKV, Mamba: the "
-                "alive-masked verify scans, rollback by value) comes with "
-                "the recurrent-cache slice; this service is not "
-                "parallel_safe")
         self.svc = service
         self.k = int(k)
         self.drafter = drafter if drafter is not None else ngram_drafter()
         self.verify = verify
         if verify == "parallel":
+            if not service.parallel_safe:
+                raise ValueError(
+                    "parallel verify needs every cache leaf position-indexed "
+                    "(recurrent RWKV/Mamba leaves roll back by value); use "
+                    "verify='scan' for this bundle")
             if getattr(service.bundle, "step_fn", None) is None:
                 raise ValueError(
                     "parallel verify needs the bundle's multi-token cached "
@@ -219,6 +292,13 @@ class SpeculativeDecoder:
             self._verify_chunk = make(service.bundle.step_fn,
                                       service._batch_axes,
                                       service._seq_axes)
+        elif not service.parallel_safe:
+            # recurrent leaves: the alive-masked scan (rollback by value);
+            # pure-KV scan mode runs the service's own _decode_scan
+            make = make_verify_scan_paged if service.paged \
+                else make_verify_scan
+            self._verify_scan = make(service.bundle.decode_fn,
+                                     service._batch_axes, service._seq_axes)
         self.drafted = 0       # draft tokens submitted for verification
         self.accepted = 0      # draft tokens accepted
         self.accepts: dict[int, int] = {}  # per-session accepted counts
@@ -255,6 +335,9 @@ class SpeculativeDecoder:
                 # write must still land inside the cache
                 pos = np.minimum(pos, svc.seq_cap - self.k - 1)
                 host = (inp, pos, n_steps > 0, n_draft)
+            elif not svc.parallel_safe:
+                # recurrent leaves: the alive-masked verify scan
+                host = (tok, pos, draft, n_draft, n_steps > 0)
             else:
                 # pure-KV exact mode: the service's own decode scan, drafts
                 # as forced tokens; steps past a mismatch write rows past
@@ -268,11 +351,17 @@ class SpeculativeDecoder:
                 inp_d, pos_d, act_d, nd_d = args[:4]
                 svc.cache, ys_d = self._verify_chunk(
                     svc._params, svc.cache, *tb, inp_d, pos_d, act_d.bool())
+                draft_d = inp_d[:, 1:]
+            elif not svc.parallel_safe:
+                tok_d, pos_d, draft_d, nd_d, act_d = args[:5]
+                svc.cache, ys_d = self._verify_scan(
+                    svc._params, svc.cache, *tb, tok_d, pos_d, draft_d, nd_d,
+                    act_d.bool())
             else:
-                inp_d, nd_d = args[2], args[5]
+                draft_d, nd_d = args[2][:, 1:], args[5]
                 svc.cache, _, _, ys_d = svc._decode_scan(
                     svc._params, svc.cache, *tb, *args[:5])
-            acc = acceptance_stats(ys_d, inp_d[:, 1:], nd_d) \
+            acc = acceptance_stats(ys_d, draft_d, nd_d) \
                 if svc.device_counters else None
             ys = ys_d.cpu().numpy()
         svc._record_dispatch(time.perf_counter() - t0, shape)
@@ -355,7 +444,7 @@ class SpeculativeDecoder:
                     remaining[sid] -= len(toks)
                 continue
             if svc.paged:
-                # parallel mode writes K+1 whole rows, the scan at most
+                # parallel mode writes K+1 whole rows, either scan at most
                 # n_steps; rejected rows' blocks are trimmed after
                 for sid, s in lanes.items():
                     steps = svc.sessions[sid].steps

@@ -16,7 +16,10 @@ cast; the same invariants for the MoE family (deepseek-v2-lite-16b with
 MLA, moonshot-v1-16b-a3b, cut narrow), the MoE FFN on the card against
 itself on the CPU (routing, top-k tie order and drop mask exact), and
 speculative decoding (scan mode equal to plain decode, parallel mode
-paged == dense).  Marked ``cuda``; every test skips when no card is present.  This file
+paged == dense); the recurrent families (rwkv6-1.6b and zamba2-1.2b cut
+narrow): the same invariants, a masked lane's cache frozen by value, the
+baked tree, and the alive-masked verify scans equal to plain decode.
+Marked ``cuda``; every test skips when no card is present.  This file
 imports no JAX, so it runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -1010,3 +1013,130 @@ def test_speculative_on_card(dev, name):
         par.append([got[x] for x in s])
         assert all(len(g) == 24 for g in par[-1])
     assert par[0] == par[1]
+
+
+# ---------------------------------------------------------------------------
+# the recurrent families (RWKV, the zamba hybrid) on the card
+# ---------------------------------------------------------------------------
+
+def _rec(dev, name):
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_bundle
+
+    over = dict(n_layers=3, d_model=256, d_ff=512, vocab_size=512)
+    if name == "rwkv6-1.6b":
+        over.update(rwkv_head_dim=64)
+    else:
+        over.update(n_heads=4, n_kv_heads=4, head_dim=64, ssm_state=32,
+                    ssm_head_dim=64, attn_every=2)
+    cfg = get_config(name).replace(**over)
+    bundle = build_bundle(cfg, dev)
+    return bundle, bundle.init(torch.Generator(device=dev).manual_seed(0))
+
+
+@pytest.mark.parametrize("name", ["rwkv6-1.6b", "zamba2-1.2b"])
+def test_recurrent_invariants_bit_exact_on_card(dev, name):
+    """Token-by-token prefill; t_chunk 16 == 1, paged == dense (zamba;
+    RWKV stays dense) and park/resume through evictions, tokens and every
+    cache leaf bit for bit; a ragged dispatch leaves the masked lane's
+    cache as it was."""
+    bundle, params = _rec(dev, name)
+    prompts = _lm_prompts()
+    runs = {}
+    for key, kw in (("dense", {}), ("t1", {"t_chunk": 1}),
+                    ("paged", {"paged": True})):
+        svc = _lm_svc(bundle, params, **kw)
+        assert not svc.parallel_safe and svc.prefill_chunk == 0
+        assert svc.paged == (key == "paged" and name == "zamba2-1.2b")
+        sids = [svc.open_session(p) for p in prompts]
+        out = svc.decode({s: 20 for s in sids})
+        runs[key] = ([out[s] for s in sids], _live_bits(svc, sids), svc)
+    for key in ("t1", "paged"):
+        assert runs[key][0] == runs["dense"][0], key
+        assert all(np.array_equal(a, b) for a, b in
+                   zip(runs[key][1], runs["dense"][1])), key
+    svc = runs["t1"][2]
+    sids = sorted(svc.sessions)
+    before = _live_bits(svc, sids[:1])
+    svc.decode({s: 4 for s in sids[1:]})
+    assert all(np.array_equal(a, b)
+               for a, b in zip(_live_bits(svc, sids[:1]), before))
+    for paged in (False, True):
+        svc = _lm_svc(bundle, params, paged=paged, max_sessions=8)
+        sids = [svc.open_session(p) for p in prompts + prompts]
+        got = {s: [] for s in sids}
+        for _ in range(2):
+            for wave in (sids[:4], sids[4:]):
+                for s, t in svc.decode({s: 10 for s in wave}).items():
+                    got[s] += t
+        assert svc.stats()["evictions"] >= 8
+        assert [got[s] for s in sids] == runs["dense"][0] * 2
+
+
+@pytest.mark.parametrize("name", ["rwkv6-1.6b", "zamba2-1.2b"])
+def test_recurrent_spill_and_baked_tree_on_card(dev, name, tmp_path):
+    """A spilled session resumes in a fresh service bit for bit, and the
+    baked bf16 tree (fp32-cast leaves kept fp32) decodes as the fp32 tree
+    with its per-use casts."""
+    from repro_torch.models.transformer import bake_lm_params
+    from repro_torch.utils.trees import tree_leaves
+
+    bundle, params = _rec(dev, name)
+    prompts = _lm_prompts()
+    ctl = _lm_svc(bundle, params)
+    c = [ctl.open_session(p) for p in prompts]
+    want = ctl.decode({s: 16 for s in c})
+    svc = _lm_svc(bundle, params)
+    s = [svc.open_session(p) for p in prompts]
+    first = svc.decode({x: 6 for x in s})
+    path = str(tmp_path / "rec.npz")
+    svc.spill_parking(path, include_bound=True)
+    fresh = _lm_svc(bundle, params)
+    assert fresh.restore_parking(path) == s
+    rest = fresh.decode({x: 10 for x in s})
+    assert [first[x] + rest[x] for x in s] == [want[x] for x in c]
+    baked = bake_lm_params(params, bundle.cfg)
+    tok = torch.arange(4, dtype=torch.int32, device=dev)[:, None]
+    pos = torch.tensor([0, 3, 5, 9], dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        a, ca = bundle.decode_fn(params, bundle.empty_cache(4, 16),
+                                 {"tokens": tok, "pos": pos})
+        b, cb = bundle.decode_fn(baked, bundle.empty_cache(4, 16),
+                                 {"tokens": tok, "pos": pos})
+    assert torch.equal(a, b) and bool(torch.isfinite(a).all())
+    assert all(torch.equal(x, y)
+               for x, y in zip(tree_leaves(ca), tree_leaves(cb)))
+
+
+@pytest.mark.parametrize("name", ["rwkv6-1.6b", "zamba2-1.2b"])
+def test_recurrent_speculative_on_card(dev, name):
+    """Scan-mode speculation (the alive-masked verify scan) emits plain
+    decode's tokens bit for bit for the n-gram and a random drafter,
+    dense and (zamba) paged, with the device acceptance count equal to
+    the host's; parallel verify is refused."""
+    from repro_torch.sessions import SpeculativeDecoder, ngram_drafter
+
+    bundle, params = _rec(dev, name)
+    prompts = _lm_prompts()
+    plain = _lm_svc(bundle, params)
+    sids = [plain.open_session(p) for p in prompts]
+    out = plain.decode({s: 20 for s in sids})
+    want = [out[s] for s in sids]
+
+    def rand(hist, k):
+        return np.random.default_rng(len(hist)).integers(
+            0, 512, size=k).astype(np.int32)
+
+    for paged in (False, True):
+        for dr in (ngram_drafter(), rand):
+            svc = _lm_svc(bundle, params, paged=paged, device_counters=True)
+            sp = SpeculativeDecoder(svc, dr, k=4)
+            s = [svc.open_session(p) for p in prompts]
+            got = sp.decode({x: 8 for x in s})
+            svc.park(s[0])
+            rest = sp.decode({x: 12 for x in s})
+            assert [got[x] + rest[x] for x in s] == want, (paged, dr)
+            acc = svc.metrics()["spec_device_accepted_total"][0]["value"]
+            assert acc == sp.accepted
+    with pytest.raises(ValueError, match="parallel verify"):
+        SpeculativeDecoder(plain, verify="parallel")

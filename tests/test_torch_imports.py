@@ -42,7 +42,8 @@ def test_port_files_found():
             "episodic.py", "compress.py", "optim.py", "trainer.py",
             "trees.py", "layers.py", "transformer.py", "params.py",
             "lm.py", "host.py", "shapes.py", "olmo_1b.py",
-            "qwen25_32b.py", "moe.py", "spec.py"} <= names
+            "qwen25_32b.py", "moe.py", "spec.py", "rwkv.py",
+            "ssm.py"} <= names
 
 
 @pytest.mark.parametrize("module", ["repro_torch.kernels.dispatch",
@@ -61,8 +62,11 @@ def test_port_files_found():
                                     "repro_torch.models.layers",
                                     "repro_torch.models.transformer",
                                     "repro_torch.models.params",
+                                    "repro_torch.models.rwkv",
+                                    "repro_torch.models.ssm",
                                     "repro_torch.models",
                                     "repro_torch.sessions.lm",
+                                    "repro_torch.sessions.spec",
                                     "repro_torch.sessions",
                                     "repro_torch.serving.engine",
                                     "repro_torch.utils.host",

@@ -1,6 +1,6 @@
 """The port's LMSessionService on the CPU: the invariants of
-tests/test_lm_sessions.py (its RWKV cases excepted: that family is not
-ported) held bit for bit inside the port — chunked == per-token decode,
+tests/test_lm_sessions.py (its RWKV cases are in
+tests/test_torch_recurrent_sessions.py) held bit for bit inside the port — chunked == per-token decode,
 chunk boundaries, interleaving, evict/park/resume, parking through disk,
 seq_cap retirement, int32 positions, restore refusals, oversized prompts,
 back-pressure and oversubscription, paged == dense, O(1) paged admission,

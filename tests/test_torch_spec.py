@@ -295,8 +295,10 @@ def test_validation():
     class Recurrent:  # what a bundle with RWKV/Mamba leaves would be
         parallel_safe = False
 
-    with pytest.raises(NotImplementedError, match="recurrent"):
-        SpeculativeDecoder(Recurrent())
+    # the reference's refusal: a recurrent leaf rolls back by value, so
+    # only the scan modes verify it (tests/test_torch_recurrent_sessions.py)
+    with pytest.raises(ValueError, match="parallel verify"):
+        SpeculativeDecoder(Recurrent(), verify="parallel")
     sp = SpeculativeDecoder(svc, k=2)
     with pytest.raises(KeyError):
         sp.decode({12345: 1})

@@ -58,6 +58,19 @@ from repro_torch.training import optim as to  # noqa: E402
 from repro_torch.training.episodic import make_episode_step  # noqa: E402
 from repro_torch.utils.trees import tree_leaves  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module, restored after it: when test
+    workers share the cores, torch's threads wait on each other for every
+    op, and a step that takes ~20 ms alone then takes seconds, which hides
+    test_straggler_detection's injected 1 s straggler under its EMA."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 RTOL, ATOL = 2e-4, 2e-5          # forward (the repo's fp32 precedent)
 TRAIN_RTOL, TRAIN_ATOL = 1e-3, 1e-4  # after several optimizer steps
 GEOM = dict(SMALL, tcn_in_channels=1)
