@@ -161,6 +161,32 @@ non-zero):
            of a step, prefill tokens/s, park bytes (fixed and a token) and
            the bytes bound of a step (weights + recurrent state read and
            written + KV rows).  No port kernel launched (asserted).
+  encdec   seamless-m4t-large-v2 at full width and depth (24 encoder and 24
+           decoder layers, d 1024, 16 heads x 64, ReLU MLP 8192, vocab
+           256,206) on seeded random weights baked to bf16: the bundle's
+           prefill_fn over 8 x 4,096 seeded frames and prompts of 16-48
+           tokens, the reference's cache contract (prefill(tokens[:S])
+           against prefill(tokens[:S-1]) + one decode_fn step, rtol/atol
+           3e-2), 32 greedy decode_fn steps against the cross cache;
+           LMServer(max_batch=8, seq_cap=256) over token prompts fed token
+           by token (the cross K/V zero and dense per slot, passed through
+           the value mask unread): t_chunk 16 == 1, paged == dense, a
+           ragged dispatch, a second wave of 16 sessions over 8 slots
+           (park/resume) and two sessions spilled and restored, all bit for
+           bit, scan speculation (K=4, the drafter zoo) equal to plain
+           decode, parallel verify refused; a 5-way 1-shot adapt over
+           embed_fn (frames and 16 tokens a shot: proto_extract at V=1024)
+           against the plain version.  Reported: the encoder's ms, prefill
+           positions/s, ms a decode step, launches and idle share, the
+           bytes bound of a step (decoder weights + head + cross K/V + live
+           rows), park bytes, proto_extract's times beside the launch
+           floor and the library call;
+  vlm      internvl2-76b at full width (d 8192, GQA 64/8 with
+           attn_kv_repeat, SwiGLU 28,672, vocab 128,256) with its depth cut
+           to 4 of 80 layers: the encdec phase's drive with 1,024 seeded
+           patches in front of the text (decode positions count them),
+           chunked prefill at open in the server, no speculation; adapt at
+           V=8192.
 
     python3 chip_smoke.py --compare-with DIR
 
@@ -3913,6 +3939,530 @@ def phase_recurrent(cfg, dev, smi: str, seed: int = 22,
 
 
 # ---------------------------------------------------------------------------
+# phases: encdec and vlm (the front-end families through their bundles,
+# LMServer and few-shot enrollment)
+# ---------------------------------------------------------------------------
+
+FE_GEN, FE_WAYS = 32, 5
+
+
+def fe_front(cfg, rng, B: int, dev):
+    """The front end's seeded embeddings on the card in the activation
+    dtype (the reference's stubs): ("frames", (B, ENCDEC_ENC_LEN, D)) or
+    ("patches", (B, n_patches, D)), unit variance."""
+    import torch
+    from repro_torch.configs import ENCDEC_ENC_LEN
+
+    from repro_torch.models.transformer import act_dtype
+
+    key, n = ("patches", cfg.n_patches) if cfg.family == "vlm" \
+        else ("frames", ENCDEC_ENC_LEN)
+    g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
+    x = torch.randn((B, n, cfg.d_model), generator=g, device=dev)
+    return key, x.to(act_dtype(cfg))
+
+
+def fe_step_weights(params) -> int:
+    """Bytes of the baked weights a decode step reads: the decoder layers,
+    the final norm and the LM head (the encoder and the embedding table,
+    of which a step reads one row a lane, excluded)."""
+    from repro_torch.utils.trees import tree_leaves
+
+    return sum(t.numel() * t.element_size()
+               for k in ("layers", "final_norm", "lm_head")
+               for t in tree_leaves(params.get(k)))
+
+
+def fe_grow(cache, rows: int, extra: int):
+    """The cache's sequence-axis leaves (those ``rows`` long on axis 2)
+    grown by ``extra`` zero rows; the cross leaves as they are."""
+    import torch
+    from repro_torch.utils.trees import tree_map
+
+    return tree_map(lambda a: torch.nn.functional.pad(
+        a, (0, 0, 0, 0, 0, extra)) if a.shape[2] == rows else a, cache)
+
+
+def fe_inputs(cfg, rng, dev) -> dict:
+    """The bundle drive's inputs: 8 prompts of 16-48 tokens, right-padded
+    with seeded tokens to the longest (S), behind the front end's seeded
+    embeddings (4,096 frames or 1,024 patches a lane)."""
+    import numpy as np
+    import torch
+
+    lo, hi = REC_PROMPT_LEN
+    lens = rng.integers(lo, hi + 1, LM_SLOTS)
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (LM_SLOTS, int(lens.max()))).astype(np.int32))
+    key, emb = fe_front(cfg, rng, LM_SLOTS, dev)
+    return {"key": key, "emb": emb, "toks": toks.to(dev), "lens": lens,
+            "P": emb.shape[1] if cfg.family == "vlm" else 0}
+
+
+def fe_contract(bundle, params, inp) -> dict:
+    """The reference's cache contract (tests/test_archs_smoke.py:46):
+    prefill(tokens[:S]) last logits against prefill(tokens[:S-1]) and one
+    ``decode_fn`` step at the position after it (vlm: counting the
+    patches).  Returns the max |gap|, the logits' scale (max(1, max
+    |logit|)), whether every logit is finite and whether the reference's
+    rtol 3e-2 / atol 3e-2 holds."""
+    import torch
+    from repro_torch.models.transformer import act_dtype
+
+    key, toks, P = inp["key"], inp["toks"], inp["P"]
+    emb = inp["emb"].to(act_dtype(bundle.cfg))
+    S = toks.shape[1]
+    with torch.no_grad():
+        full, _ = bundle.prefill_fn(params, {key: emb, "tokens": toks})
+        _, short = bundle.prefill_fn(params, {key: emb,
+                                              "tokens": toks[:, :-1]})
+        step, _ = bundle.decode_fn(params, fe_grow(short, P + S - 1, 1), {
+            "tokens": toks[:, -1:], "pos": P + S - 1})
+    return {"gap": float((full - step).abs().max()),
+            "scale": max(1.0, float(full.abs().max())),
+            "finite": bool(torch.isfinite(full).all()
+                           & torch.isfinite(step).all()),
+            "held": bool(torch.allclose(full, step, rtol=3e-2, atol=3e-2))}
+
+
+def fe_bundle(bundle, params, cfg, dev, inp, name, smi) -> dict:
+    """The bundle's own entry points at 8 lanes (``fe_inputs``).  The
+    cache contract (``fe_contract``) on the served bf16 tree, held at 5e-2
+    of the logits' scale (the bf16 parity tolerance): a prefill's GEMMs
+    run at another M than a decode step's and round otherwise in bf16,
+    which 24 layers carry on (the reference's rtol/atol 3e-2 is held in
+    fp32 by ``phase_frontend`` and reported here).  Then 32 greedy
+    ``decode_fn`` steps of every lane from its own prompt end (per-lane
+    positions; the padded rows are overwritten before any read) on the
+    self cache grown to fit, every logit finite.  Reported: the encoder's
+    ms (8 x 4,096 frames), the prefill's ms and positions/s, ms a decode
+    step, launches and idle share of a step and its bytes bound."""
+    import torch
+    from repro_torch.models.transformer import run_encoder
+    from repro_torch.utils.trees import tree_leaves
+
+    key, emb, toks, lens, P = (inp[k] for k in ("key", "emb", "toks",
+                                                "lens", "P"))
+    S = toks.shape[1]
+    batch = {key: emb, "tokens": toks}
+    out = {}
+    with torch.no_grad():
+        if cfg.is_encdec:
+            out["encoder_ms"] = time_ms(
+                lambda: run_encoder(params, cfg, emb), dev, n=3, warmup=1)
+        out["prefill_ms"] = time_ms(lambda: bundle.prefill_fn(params, batch),
+                                    dev, n=3, warmup=1)
+        _, cache = bundle.prefill_fn(params, batch)
+    if cfg.is_encdec and cache["self"]["cross"]["k"].shape[2] \
+            != emb.shape[1]:
+        raise RuntimeError(f"{name}: the cross cache is not the frames' "
+                           "length")
+    c = fe_contract(bundle, params, inp)
+    out["contract_bf16"] = c
+    if not c["finite"] or c["gap"] > 5e-2 * c["scale"]:
+        raise RuntimeError(f"{name}: bf16 prefill(tokens[:S]) differs from "
+                           f"prefill(tokens[:S-1]) + decode beyond 5e-2 of "
+                           f"the logits' scale ({c})")
+    with torch.no_grad():
+        cache = fe_grow(cache, P + S, FE_GEN)
+        last = torch.from_numpy(lens - 1).to(dev)
+        pos = (P + last).to(torch.int32)
+        tok = toks[torch.arange(LM_SLOTS, device=dev), last][:, None]
+        sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(FE_GEN):
+            lg, cache = bundle.decode_fn(params, cache, {"tokens": tok,
+                                                         "pos": pos})
+            tok = torch.argmax(lg, dim=-1).to(torch.int32)[:, None]
+            pos = pos + 1
+            if not bool(torch.isfinite(lg).all()):
+                raise RuntimeError(f"{name}: non-finite decode logits")
+        sync(dev)
+        out["decode_ms"] = (time.perf_counter() - t0) * 1e3 / FE_GEN
+        one = lambda: bundle.decode_fn(params, cache, {"tokens": tok,
+                                                       "pos": pos})
+        prof = profile_tick(one, ticks=5, name=f"{name} bundle decode step")
+    cross = sum(t.numel() * t.element_size() for t in tree_leaves(
+        cache.get("self", {}).get("cross")))
+    per_pos = sum(t[:, :1, :1].numel() * t.element_size()
+                  for k, t in (cache.get("self") or cache["dense"]).items()
+                  if k != "cross")
+    live = int((pos.to(torch.int64) + 1).sum())
+    w = fe_step_weights(params)
+    bound_ms = (w + cross + per_pos * live) / PEAK_BYTES * 1e3
+    n_pos = LM_SLOTS * (P + S)
+    out.update(launches=prof["launches"],
+               idle=1 - prof["busy_ms"] / prof["wall_ms"],
+               busy_ms=prof["busy_ms"], bound_ms=bound_ms,
+               prefill_pos_per_s=n_pos / out["prefill_ms"] * 1e3,
+               step_weights=w, cross_bytes=cross)
+    log(f"{name}: bundle serve, 8 lanes of {key} {tuple(emb.shape[1:])} "
+        f"and prompts of {int(lens.min())}-{S} tokens: "
+        + (f"encoder {out['encoder_ms']:.2f} ms (8 x {emb.shape[1]} "
+           f"frames); " if cfg.is_encdec else "")
+        + f"prefill {out['prefill_ms']:.2f} ms = "
+        f"{out['prefill_pos_per_s']:,.0f} positions/s ({n_pos} positions); "
+        f"bf16 prefill(tokens[:S]) vs prefill(tokens[:S-1]) + decode: max "
+        f"|gap| {c['gap']:.4g} at a logit scale of {c['scale']:.4g} (within "
+        f"5e-2 of it; the reference's rtol/atol 3e-2 "
+        f"{'held' if c['held'] else 'not met'}); {FE_GEN} greedy "
+        f"decode_fn steps {out['decode_ms']:.2f} ms each; a step "
+        f"{prof['launches']:.0f} launches, busy {prof['busy_ms']:.3f} ms, "
+        f"idle share {out['idle']:.4f}; bytes bound of a step "
+        f"{bound_ms:.4f} ms (weights {w / 1e9:.3f} GB + cross K/V "
+        f"{cross / 1e9:.3f} GB + {live} live self rows x {per_pos:,} B) at "
+        f"3.35 TB/s [{smi}]")
+    return out
+
+
+def fe_column(srv, sid) -> dict:
+    """A session's cache column, for comparing two servers bit for bit:
+    the KV rows [0, steps) as host bits (gathered through the block table
+    when paged), each leaf without a sequence axis (the seamless cross
+    K/V, 403 MB a session at full size) as a copy on the card."""
+    import numpy as np
+    from repro_torch.sessions.state import gather_column, map_tree, \
+        pack_column
+    from repro_torch.utils.host import BF16_HOST
+
+    svc = srv.service
+    steps, slot = svc.sessions[sid].steps, svc.sched.slot_of[sid]
+    row = svc._device_table()[slot][None] if svc.paged else None
+
+    def leaf(a, bax, sax):
+        if sax < 0:
+            return a.select(bax, slot).clone()
+        col = gather_column(a, row, bax) if svc.paged else a
+        h = pack_column({"x": col}, {"x": bax}, 0 if svc.paged else slot,
+                        trunc_axes={"x": sax}, trunc_len=steps)["x"]
+        return h.view(np.uint16) if h.dtype == BF16_HOST else h
+
+    return map_tree(leaf, svc.cache, svc._batch_axes, svc._seq_axes)
+
+
+def fe_same(a: list, b: list) -> bool:
+    """``fe_column``s of two servers' sessions equal bit for bit."""
+    import numpy as np
+    import torch
+    from repro_torch.utils.trees import tree_leaves
+
+    def eq(x, y):
+        if isinstance(x, torch.Tensor):
+            return torch.equal(x, y)
+        return np.array_equal(x, y)
+
+    return all(eq(x, y) for ta, tb in zip(a, b)
+               for x, y in zip(tree_leaves(ta), tree_leaves(tb)))
+
+
+def fe_serve(bundle, params, cfg, dev, rng, name, smi) -> dict:
+    """LMServer(ServeConfig(max_batch=8, seq_cap=256)) over 8 token
+    prompts of 16-48 tokens (no session entry point takes frames or
+    patches: the seamless cross leaves stay zero, dense per slot, and its
+    prompts go token by token), 32 greedy tokens each.  Bit for bit:
+    t_chunk 16 == 1 and paged == dense (tokens and every cache leaf), a
+    ragged dispatch, a second wave of 16 sessions over the 8 slots (dense
+    and paged) against never-parked controls, two sessions spilled and
+    restored against their never-spilled continuations; seamless: scan
+    speculation (K=4, the drafter zoo: oracle, always-wrong, random,
+    n-gram) equal to plain decode, parallel verify refused.  Reported:
+    park bytes, ms a token, launches and idle share of a step, its bytes
+    bound."""
+    from repro_torch.serving import LMServer, ServeConfig
+
+    prompts = rec_prompts(rng, LM_SLOTS, cfg.vocab_size)
+    zero_launch_counts()
+    dense = rec_server(bundle, params)
+    svc = dense.service
+    if svc.parallel_safe == cfg.is_encdec:
+        raise RuntimeError(f"{name}: parallel_safe={svc.parallel_safe}")
+    sync(dev)
+    t0 = time.perf_counter()  # the prompt feed: prefill at open (vlm) or
+    d_sids, _ = rec_open(dense, prompts, dev)  # token by token (encdec)
+    d_s = time.perf_counter() - t0
+    dense.step(FE_GEN)
+    d_out = [list(dense.outputs[s]) for s in d_sids]
+    if any(len(o) != FE_GEN for o in d_out):
+        raise RuntimeError(f"{name}: {[len(o) for o in d_out]} tokens")
+    d_cols = [fe_column(dense, s) for s in d_sids]
+    n_prefill = sum(len(p) - 1 for p in prompts)
+    one = rec_server(bundle, params, decode_chunk=1)
+    o_sids, _ = rec_open(one, prompts, dev)
+    one.step(FE_GEN)
+    if [one.outputs[s] for s in o_sids] != d_out or not fe_same(
+            [fe_column(one, s) for s in o_sids], d_cols):
+        raise RuntimeError(f"{name}: t_chunk=1 differs from t_chunk=16")
+    # a ragged dispatch: lane 0 masked on the t_chunk=1 twin
+    before = [fe_column(one, o_sids[0])]
+    got = one.push({s: REC_EXTRA for s in o_sids[1:]})
+    want = dense.push({s: REC_EXTRA for s in d_sids})
+    if [got[s] for s in o_sids[1:]] != [want[s] for s in d_sids[1:]] \
+            or not fe_same([fe_column(one, s) for s in o_sids[1:]],
+                           [fe_column(dense, s) for s in d_sids[1:]]) \
+            or not fe_same([fe_column(one, o_sids[0])], before):
+        raise RuntimeError(f"{name}: a masked lane perturbed its "
+                           "neighbours or itself")
+    del one, before
+    paged = rec_server(bundle, params, paged=True, block_len=LM_BLOCK)
+    p_sids, _ = rec_open(paged, prompts, dev)
+    paged.step(FE_GEN)
+    if not paged.service.paged or [paged.outputs[s] for s in p_sids] \
+            != d_out or not fe_same([fe_column(paged, s) for s in p_sids],
+                                    d_cols):
+        raise RuntimeError(f"{name}: paged differs from dense")
+    st = paged.stats()["paged"]
+    del paged, d_cols
+    log(f"{name}: LMServer, 8 prompts of {min(map(len, prompts))}-"
+        f"{max(map(len, prompts))} tokens "
+        f"({'token by token' if cfg.is_encdec else 'chunked prefill'}), "
+        f"{FE_GEN} tokens each: t_chunk 16 == 1, paged == dense (pool "
+        f"blocks live {st['blocks_live']}/{st['n_blocks']}) and a ragged "
+        f"dispatch (lane 0 masked, its column frozen) bit for bit, tokens "
+        f"and every cache leaf; prompt feed {d_s * 1e3:.1f} ms = "
+        f"{n_prefill / d_s:,.1f} tokens/s [{smi}]")
+    # the second wave: 16 sessions over the 8 slots, dense and paged
+    second = rec_prompts(rng, LM_WAVE_SESSIONS - LM_SLOTS, cfg.vocab_size)
+    ctl2 = rec_server(bundle, params)
+    c2_sids, _ = rec_open(ctl2, second, dev)
+    ctl2.step(FE_GEN)
+    wave_want = d_out + [list(ctl2.outputs[s]) for s in c2_sids]
+    spilled = None
+    for pg in (False, True):
+        kw = {"paged": True, "block_len": LM_BLOCK} if pg else {}
+        srv = rec_server(bundle, params, max_sessions=LM_WAVE_SESSIONS, **kw)
+        sids = [srv.open_session(p) for p in prompts + second]
+        srv.step(FE_GEN // 2)
+        srv.step(FE_GEN - FE_GEN // 2)
+        ev = srv.stats()["evictions"]
+        if [srv.outputs[s] for s in sids] != wave_want \
+                or ev < LM_WAVE_SESSIONS:
+            raise RuntimeError(f"{name}: the {'paged' if pg else 'dense'} "
+                               f"wave differs from its controls ({ev} "
+                               "evictions)")
+        log(f"{name}: {'paged' if pg else 'dense'} wave of "
+            f"{LM_WAVE_SESSIONS} sessions on {LM_SLOTS} slots: {ev} "
+            f"evictions (park/resume), every stream bit-equal to its "
+            f"never-parked control; parked bytes "
+            f"{srv.stats()['parked_blob_bytes']:,}")
+        if not pg:
+            spilled = (srv, sids)
+        else:
+            del srv
+    # spill two sessions (one of each wave), restore into a fresh server
+    srv, sids = spilled
+    keep = [sids[0], sids[LM_SLOTS]]
+    for s in sids:
+        if s not in keep:
+            srv.close(s)
+    spill = ROOT / "build" / "fe_spill.npz"
+    t0 = time.perf_counter()
+    srv.service.spill_parking(str(spill), include_bound=True)
+    t_spill = time.perf_counter() - t0
+    del srv, spilled
+    fresh = LMServer(bundle, params, ServeConfig(
+        max_batch=LM_SLOTS, seq_cap=REC_SEQ_CAP, decode_chunk=LM_T_CHUNK,
+        prefill_chunk=LM_PREFILL_CHUNK, max_sessions=LM_WAVE_SESSIONS))
+    t0 = time.perf_counter()
+    restored = fresh.service.restore_parking(str(spill))
+    t_restore = time.perf_counter() - t0
+    size = spill.stat().st_size
+    spill.unlink()
+    cont = fresh.push({s: REC_EXTRA for s in restored})
+    twin = ctl2.push({c2_sids[0]: REC_EXTRA})
+    want = [dense.outputs[d_sids[0]][FE_GEN:FE_GEN + REC_EXTRA],
+            twin[c2_sids[0]]]
+    if [cont[s] for s in restored] != want:
+        raise RuntimeError(f"{name}: restored sessions differ from their "
+                           "never-spilled continuations")
+    log(f"{name}: spilled 2 sessions ({size:,} bytes, {t_spill:.2f} s), "
+        f"restored ({t_restore:.2f} s), {REC_EXTRA} more tokens each "
+        "bit-equal to the never-spilled continuations")
+    del fresh, ctl2
+    out = {}
+    if cfg.is_encdec:
+        out["spec"] = rec_spec(bundle, params, prompts, d_out, dev, name,
+                               smi)
+        try:
+            rec_server(bundle, params, speculative=SPEC_K,
+                       spec_verify="parallel")
+        except ValueError as e:
+            log(f"{name}: verify='parallel' refused: {e}")
+        else:
+            raise RuntimeError(f"{name}: parallel verify was not refused")
+    sids = [s for s in d_sids if not svc.sessions[s].done]
+    one_tok = lambda: dense.push({s: 1 for s in sids})
+    ms1 = time_ms(one_tok, dev, n=REC_TIMED)
+    ms16 = time_ms(lambda: dense.push({s: LM_T_CHUNK for s in sids}), dev,
+                   n=2, warmup=1) / LM_T_CHUNK
+    prof = profile_tick(one_tok, ticks=5, name=f"{name} server decode step")
+    fixed, per_tok = svc._park_fixed, svc._park_per_pos
+    w = fe_step_weights(params)
+    live = sum(svc.sessions[s].steps for s in sids)
+    bound_ms = (w + fixed * LM_SLOTS + per_tok * live) / PEAK_BYTES * 1e3
+    log(f"{name}: server decode p50 {ms1:.3f} ms per token (T=1 dispatch "
+        f"of {len(sids)} lanes, {REC_TIMED} timed), {ms16:.3f} ms per token"
+        f" in T={LM_T_CHUNK} dispatches; {prof['launches']:.0f} launches, "
+        f"busy {prof['busy_ms']:.3f} ms, idle share "
+        f"{1 - prof['busy_ms'] / prof['wall_ms']:.4f} a step; park bytes a "
+        f"session {fixed:,} fixed + {per_tok:,} a token; bytes bound of a "
+        f"step {bound_ms:.4f} ms (weights {w / 1e9:.3f} GB + fixed leaves "
+        f"{fixed * LM_SLOTS / 1e9:.3f} GB + {live} live rows) at 3.35 TB/s "
+        f"[{smi}]")
+    counts = lm_launch_counts()
+    if any(counts.values()):
+        raise RuntimeError(f"{name}: the serving path launched a port "
+                           f"kernel {counts}; it should reach none")
+    del dense
+    out.update(prefill_tps=n_prefill / d_s, ms_per_token=ms1,
+               ms_per_token_t16=ms16, launches=prof["launches"],
+               busy_ms=prof["busy_ms"],
+               idle=1 - prof["busy_ms"] / prof["wall_ms"],
+               park_fixed=fixed, park_per_token=per_tok, bound_ms=bound_ms)
+    return out
+
+
+def fe_fewshot(bundle, params, cfg, dev, rng, name, smi, floor_ms) -> dict:
+    """A 5-way 1-shot ``protonet.adapt`` over the bundle's ``embed_fn``
+    (each shot: the front end's embeddings and 16 tokens; bf16 embeddings
+    upcast to fp32, V = d_model), counters zeroed just before and read
+    just after (one proto_extract launch); W/b against support_sums +
+    pn_fc_from_sums at rtol 1e-5, atol 1e-6; the kernel against its plain
+    version on the same embeddings; proto_extract timed at this shape
+    (device ms from CUDA-graph replay, the wrapper, the plain version, the
+    library call) beside the launch floor and its bound."""
+    import numpy as np
+    import torch
+    from repro_torch.core import protonet
+    from repro_torch.kernels.proto_extract import proto_extract
+    from repro_torch.kernels.ref import proto_extract_ref
+
+    key, emb_in = fe_front(cfg, rng, FE_WAYS, dev)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (FE_WAYS, 16))
+                            .astype(np.int32)).to(dev)
+    batch = {key: emb_in, "tokens": toks}
+    labels = torch.from_numpy(rng.permutation(FE_WAYS).astype(np.int32)).to(
+        dev)
+    with torch.no_grad():
+        zero_launch_counts()
+        sync(dev)
+        t0 = time.perf_counter()
+        w, b = protonet.adapt(bundle.embed_fn, params, batch, labels,
+                              FE_WAYS, 1)
+        sync(dev)
+        t_adapt = time.perf_counter() - t0
+        counts = lm_launch_counts()
+        emb = bundle.embed_fn(params, batch).to(torch.float32).contiguous()
+    if counts["proto_extract"] != 1 or sum(counts.values()) != 1:
+        raise RuntimeError(f"{name}: adapt launched {counts}")
+    pw, pb = protonet.pn_fc_from_sums(
+        protonet.support_sums(emb, labels, FE_WAYS), 1)
+    err = max(allclose(f"{name} adapt W", w, pw, 1e-5, 1e-6),
+              allclose(f"{name} adapt b", b, pb, 1e-5, 1e-6))
+    onehot = torch.nn.functional.one_hot(labels.long(), FE_WAYS).to(
+        torch.float32).T.contiguous()
+    call = lambda: proto_extract(emb, onehot, 1)
+    kern_w, kern_b = call()
+    rw, rb = proto_extract_ref(emb, onehot, 1)
+    if not torch.equal(kern_w, rw):
+        raise RuntimeError(f"{name}: proto_extract W differs from its plain "
+                           "version")
+    err = max(err, allclose(f"{name} proto_extract b", kern_b, rb, 1e-5,
+                            1e-6))
+    V = emb.shape[1]
+
+    def library():  # one PyTorch call per output; never used by the port
+        m = torch.matmul(onehot, emb)
+        return m, -(m * m).sum(-1) * 0.5
+
+    t = {"V": V, "ms": device_ms(call, dev), "wrapper_ms": time_ms(call, dev),
+         "plain_ms": time_ms(lambda: proto_extract_ref(emb, onehot, 1), dev),
+         "library_ms": device_ms(library, dev)}
+    nb = (emb.numel() + onehot.numel() + FE_WAYS * V + FE_WAYS) * 4
+    fl = 2 * FE_WAYS * FE_WAYS * V + 2 * FE_WAYS * V
+    t["bound_ms"], t["bound_by"] = bound(nb, fl)
+    log(f"{name}: 5-way 1-shot adapt over embed_fn ({key} + 16 tokens a "
+        f"shot) in {t_adapt * 1e3:.1f} ms, 1 proto_extract launch, W/b "
+        f"within rtol 1e-5 / atol 1e-6 of the plain version (max |err| "
+        f"{err:.3g}); timing proto_extract N={FE_WAYS} Nk={FE_WAYS} V={V}: "
+        f"ms={t['ms']:.5f} (launch floor {floor_ms:.5f}) wrapper_ms="
+        f"{t['wrapper_ms']:.4f} plain_ms={t['plain_ms']:.4f} library_ms="
+        f"{t['library_ms']:.5f} bound_ms={t['bound_ms']:.7f} "
+        f"bound_by={t['bound_by']} [{smi}]")
+    return {"launches": counts["proto_extract"], "err": err, "timing": t}
+
+
+def phase_frontend(cfg, dev, smi: str, floor_ms: float, seed: int = 24,
+                   depth_note: str = "full depth") -> dict:
+    """A front-end family at full width on seeded random weights drawn on
+    the card and baked to bf16 (the baked decode equal to the fp32 tree's
+    per-use cast): seamless-m4t-large-v2 (the encoder-decoder: 24 encoder
+    and 24 decoder layers, d 1024, 16 heads x 64, ReLU MLP 8192, vocab
+    256,206) or internvl2-76b (vlm: d 8192, GQA 64/8 with attn_kv_repeat,
+    SwiGLU 28,672, vocab 128,256, 1,024 patches; its depth cut).  The
+    bundle's entry points (``fe_bundle``), LMServer (``fe_serve``) and
+    few-shot enrollment through ``embed_fn`` (``fe_fewshot``).  The cache
+    contract is held in fp32 on the drawn tree first (``fe_contract``)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import build_bundle
+    from repro_torch.models.params import param_count
+    from repro_torch.models.transformer import bake_lm_params
+    from repro_torch.utils.trees import tree_leaves
+
+    name = f"{cfg.family} {cfg.name} ({cfg.n_layers} decoder layers, " \
+        f"{depth_note})"
+    bundle = build_bundle(cfg, dev)
+    t0 = time.perf_counter()
+    raw = bundle.init(torch.Generator(device=dev).manual_seed(seed))
+    params = bake_lm_params(raw, cfg)
+    sync(dev)
+    w_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    log(f"{name}: {param_count(bundle.param_defs):,} params drawn on the "
+        f"card and baked to {cfg.act_dtype} ({w_bytes / 1e9:.3f} GB) in "
+        f"{time.perf_counter() - t0:.2f} s [{smi}]")
+    rng = np.random.default_rng(seed)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (LM_SLOTS, 1))
+                           .astype(np.int32)).to(dev)
+    pos = torch.zeros(LM_SLOTS, dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        la, _ = bundle.decode_fn(raw, bundle.empty_cache(LM_SLOTS, 32),
+                                 {"tokens": tok, "pos": pos})
+        lb, _ = bundle.decode_fn(params, bundle.empty_cache(LM_SLOTS, 32),
+                                 {"tokens": tok, "pos": pos})
+    if not torch.equal(la, lb):
+        raise RuntimeError(f"{name}: the baked tree's decode differs from "
+                           "the per-use cast's")
+    del la, lb
+    # the cache contract in fp32 on the drawn tree, the served dispatcher
+    inp = fe_inputs(cfg, rng, dev)
+    zero_launch_counts()
+    c32 = fe_contract(build_bundle(cfg.replace(act_dtype="float32"), dev),
+                      raw, inp)
+    if not (c32["finite"] and c32["held"]):
+        raise RuntimeError(f"{name}: fp32 prefill(tokens[:S]) differs from "
+                           f"prefill(tokens[:S-1]) + decode ({c32})")
+    log(f"{name}: fp32 (the drawn tree): prefill(tokens[:S]) vs "
+        f"prefill(tokens[:S-1]) + decode, max |gap| {c32['gap']:.4g} at a "
+        f"logit scale of {c32['scale']:.4g} (rtol 3e-2, atol 3e-2 held)")
+    del raw
+    torch.cuda.empty_cache()
+    out = {"bundle": fe_bundle(bundle, params, cfg, dev, inp, name, smi)}
+    out["bundle"]["contract_fp32"] = c32
+    counts = lm_launch_counts()
+    if any(counts.values()):
+        raise RuntimeError(f"{name}: the bundle path launched a port kernel "
+                           f"{counts}; it should reach none")
+    torch.cuda.empty_cache()
+    out["serve"] = fe_serve(bundle, params, cfg, dev, rng, name, smi)
+    torch.cuda.empty_cache()
+    out["fewshot"] = fe_fewshot(bundle, params, cfg, dev, rng, name, smi,
+                                floor_ms)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the launch floor: device time of a kernel that does nothing
 # ---------------------------------------------------------------------------
 
@@ -4051,6 +4601,12 @@ def main() -> int:
     phase("recurrent", phase_recurrent, get_config("rwkv6-1.6b"), dev, smi)
     phase("recurrent zamba", phase_recurrent, get_config("zamba2-1.2b"),
           dev, smi)
+    encdec = phase("encdec", phase_frontend,
+                   get_config("seamless-m4t-large-v2"), dev, smi, floor_ms)
+    vlm = phase("vlm", phase_frontend, get_config("internvl2-76b").replace(
+        n_layers=4), dev, smi, floor_ms,
+        depth_note="depth cut to 4 of its 80 layers")
+    fewshot = [encdec["fewshot"], vlm["fewshot"]]
     if args.compare_with is not None:
         phase("compare", phase_compare, dev, audio_cfg, cfg,
               args.compare_with.resolve())
@@ -4071,10 +4627,14 @@ def main() -> int:
          "source": "src/repro_torch/csrc/proto_extract.cu",
          "replaces": "src/repro/kernels/proto_extract.py:31",
          "launches": sum(c[0] for c in fsl.values())
-         + audio["proto_launches"] + train["fsl_launches"][1],
-         "max_abs_err": errs["proto_extract"],
+         + audio["proto_launches"] + train["fsl_launches"][1]
+         + sum(f["launches"] for f in fewshot),
+         "max_abs_err": max([errs["proto_extract"]]
+                            + [f["err"] for f in fewshot]),
          "bound_peak": PEAK_NAMES[PEAK_FP32_FLOPS], **pe_time,
-         "launch_floor_ms": floor_ms},
+         "launch_floor_ms": floor_ms,
+         # the encdec and vlm phases' adapt over embed_fn (N=5, Nk=5)
+         "at_lm_widths": [f["timing"] for f in fewshot]},
         {"name": "log2_matmul", "route": "cuda",
          "source": "src/repro_torch/csrc/log2_matmul.cu",
          "replaces": "src/repro/kernels/log2_matmul.py:43",

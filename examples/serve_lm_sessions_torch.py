@@ -20,16 +20,23 @@ fixed grid.  The twin of ``examples/serve_lm_sessions.py``:
     dispatches.
 
 ``--config`` picks the model: olmo-1b (GQA, dense), deepseek-v2-lite-16b
-(MLA attention, MoE FFN), rwkv6-1.6b (recurrent wkv state) or zamba2-1.2b
-(Mamba2 layers and a shared attention block), all cut narrow and
-shallow, seeded random weights.  It runs on the card; ``--device cpu``
-runs the same code on the CPU.
+(MLA attention, MoE FFN), rwkv6-1.6b (recurrent wkv state), zamba2-1.2b
+(Mamba2 layers and a shared attention block), internvl2-76b (patch
+embeddings in front of the text) or seamless-m4t-large-v2 (an encoder
+over frame embeddings, cross attention in the decoder), all cut narrow
+and shallow, seeded random weights.  The last two first run the bundle's
+prefill over seeded patch or frame embeddings and enroll a 5-way 1-shot
+head through ``adapt`` over their ``embed_fn``; sessions take token
+prompts (seamless's cross K/V stay zero there, as in the reference).
+It runs on the card; ``--device cpu`` runs the same code on the CPU.
 
     PYTHONPATH=src python examples/serve_lm_sessions_torch.py
     PYTHONPATH=src python examples/serve_lm_sessions_torch.py \\
         --config deepseek-v2-lite-16b --speculative 4 --device cpu
     PYTHONPATH=src python examples/serve_lm_sessions_torch.py \\
         --config zamba2-1.2b --device cpu
+    PYTHONPATH=src python examples/serve_lm_sessions_torch.py \\
+        --config seamless-m4t-large-v2 --device cpu
 """
 
 import argparse
@@ -40,6 +47,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core.protonet import adapt
 from repro_torch.models import build_bundle
 from repro_torch.obs import MetricsRegistry
 from repro_torch.serving import ServingPlane
@@ -49,9 +57,36 @@ from repro_torch.sessions import (
     ngram_drafter,
     parked_bytes,
 )
+from repro_torch.utils.trees import tree_leaves
 
-CONFIGS = ("olmo-1b", "deepseek-v2-lite-16b", "rwkv6-1.6b", "zamba2-1.2b")
+CONFIGS = ("olmo-1b", "deepseek-v2-lite-16b", "rwkv6-1.6b", "zamba2-1.2b",
+           "internvl2-76b", "seamless-m4t-large-v2")
 VOCAB = 64
+
+
+def front_end(bundle, params, rng):
+    """The bundle's own front end: one prefill over seeded patch or frame
+    embeddings (the reference's stubs for InternViT and the speech
+    encoder's input), and a 5-way 1-shot head enrolled through ``adapt``
+    over ``embed_fn``."""
+    cfg, dev = bundle.cfg, bundle.device
+    key, n = ("patches", cfg.n_patches) if cfg.family == "vlm" \
+        else ("frames", 40)
+    emb = torch.from_numpy(rng.normal(size=(5, n, cfg.d_model)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    toks = torch.from_numpy(rng.integers(0, VOCAB, (5, 6)).astype(
+        np.int32)).to(dev)
+    with torch.no_grad():
+        logits, cache = bundle.prefill_fn(params, {key: emb[:1],
+                                                   "tokens": toks[:1]})
+        w, b = adapt(bundle.embed_fn, params, {key: emb, "tokens": toks},
+                     torch.arange(5, device=dev), 5, 1)
+    print(f"== front end: {n} {key} + 6 tokens ==")
+    print(f"   prefill logits {tuple(logits.shape)}, argmax "
+          f"{int(logits.argmax())}; cache leaves "
+          f"{[tuple(t.shape) for t in tree_leaves(cache)]}")
+    print(f"   5-way 1-shot head from embed_fn: W {tuple(w.shape)}, "
+          f"b {[round(float(x), 2) for x in b]}")
 
 
 def main():
@@ -72,6 +107,9 @@ def main():
     print(f"{cfg.name} (cut to {cfg.n_layers} layers, d_model "
           f"{cfg.d_model}) on {torch.cuda.get_device_name(dev) if dev.type == 'cuda' else 'the CPU'}")
 
+    if cfg.family in ("vlm", "audio"):
+        front_end(bundle, params, np.random.default_rng(1))
+
     def service():
         # 2 slots, up to 6 live sessions: churn by construction
         return LMSessionService(bundle, params, n_slots=2, seq_cap=96,
@@ -86,8 +124,9 @@ def main():
         print(f"   33-token prompt chunk-prefilled in {svc.dispatches - d0} "
               "dispatches (power-of-two chunks)")
     else:
-        print("   recurrent cache: the 33-token prompt is fed token by token "
-              "by the first decode")
+        print("   a cache leaf without a sequence axis (recurrent state, "
+              "cross K/V): the 33-token prompt is fed token by token by "
+              "the first decode")
     b = svc.open_session(rng.integers(0, VOCAB, size=3).astype(np.int32))
     d0 = svc.dispatches
     out = svc.push({a: 24, b: 24})
@@ -116,7 +155,7 @@ def main():
     blob = parked_bytes(svc.parking[parked[0]])
     print(f"   opened a 3rd session on a 2-slot grid -> session "
           f"{parked[0]} parked ({blob} host bytes: KV rows up to its "
-          "position, recurrent state whole)")
+          "position, leaves without a sequence axis whole)")
     svc.decode({c: 8})
     resumed = svc.decode({parked[0]: 8})[parked[0]]
     print(f"   resumed {parked[0]} bit-identically: {resumed[:8]}")

@@ -1,13 +1,16 @@
 """Model bundles: one functional API per architecture family.
 
-The port of ``repro/models/build.py`` for the ``tcn`` family, the
-``dense`` LM family (olmo-1b, stablelm-1.6b, qwen2.5-32b, command-r-35b),
-the ``moe`` family (deepseek-v2-lite-16b with MLA attention,
-moonshot-v1-16b-a3b with GQA), ``rwkv`` (rwkv6-1.6b) and the ``hybrid``
-Mamba2 stack with one shared attention block (zamba2-1.2b);
-``build_bundle`` raises ``NotImplementedError`` for the vlm and audio
-families, which a later slice brings, so such a config never builds
-something else.
+The port of ``repro/models/build.py`` for every family of the zoo: the
+``tcn`` family, the ``dense`` LM family (olmo-1b, stablelm-1.6b,
+qwen2.5-32b, command-r-35b), the ``moe`` family (deepseek-v2-lite-16b
+with MLA attention, moonshot-v1-16b-a3b with GQA), the ``vlm`` family
+(internvl2-76b: patch embeddings in front of the text), the
+encoder-decoder ``audio`` family (seamless-m4t-large-v2: a non-causal
+encoder over frame embeddings, cross attention in every decoder layer),
+``rwkv`` (rwkv6-1.6b) and the ``hybrid`` Mamba2 stack with one shared
+attention block (zamba2-1.2b).  The vlm and audio front ends are the
+reference's stubs: the batch carries precomputed embeddings, "patches"
+(B, P, D) or "frames" (B, S_enc, D).
 
 A ``Bundle`` carries the config, the param defs, the device its tensors
 live on and the functions:
@@ -16,16 +19,23 @@ live on and the functions:
     cross-entropy, what ``training/trainer.py`` differentiates),
     ``prefill_fn`` and ``embed_fn`` (the shot embedder of the PN-as-FC
     head and the session service);
-  * LM: ``prefill_fn(params, {"tokens"}) -> (logits_last, cache)``,
+  * LM: ``prefill_fn(params, {"tokens"}) -> (logits_last, cache)``
+    (vlm: and "patches", whose positions come first; audio: and
+    "frames", run through the encoder),
     ``decode_fn(params, cache, {"tokens" (B, 1), "pos"}) -> (logits
     (B, V), cache)``, ``step_fn`` (the same at (B, S), logits at every
     position: the chunked-prefill step), ``empty_cache(B, S)`` and
     ``cache_specs(B, S)`` (the same shapes on the ``meta`` device), and
-    ``embed_fn`` (mean final hidden state).  The cache is the reference's
-    tree: {"dense": …, "moe": …} for the two layer stacks (a stack the
-    config lacks is absent), each {"k", "v"} (GQA) or {"c_kv", "k_rope"}
-    (MLA); RWKV's {"x_prev_t", "x_prev_c" (L, B, D), "state" (L, B, H,
-    Dh, Dh) fp32}; zamba's {"mamba": {"conv" (L, B, K-1, C), "ssm" (L,
+    ``embed_fn`` (mean final hidden state over the decoder's positions,
+    the front end's batch keys as for the prefill).  The cache is the
+    reference's tree: {"dense": …, "moe": …} for the two layer stacks (a
+    stack the config lacks is absent), each {"k", "v"} (GQA) or {"c_kv",
+    "k_rope"} (MLA); the encoder-decoder's {"self": {"k", "v", "cross":
+    {"k", "v"}}}, whose cross leaves an empty cache holds at
+    ``ENCDEC_ENC_LEN`` zero rows and a prefill at the frames' length (no
+    sequence axis: the session layer carries them whole); RWKV's
+    {"x_prev_t", "x_prev_c" (L, B, D), "state" (L, B, H, Dh, Dh) fp32};
+    zamba's {"mamba": {"conv" (L, B, K-1, C), "ssm" (L,
     B, H, N, P) fp32}, "attn": {"k", "v"} (n_apps, B, S, Hkv, Dh)}, one
     KV cache per application site of the shared block.  Cached calls
     write position-indexed leaves (K/V rows) in place and return new
@@ -42,6 +52,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.configs.shapes import ENCDEC_ENC_LEN
 from repro_torch.kernels.dispatch import require_device
 from repro_torch.models import tcn as tcn_mod
 from repro_torch.models.config import ArchConfig
@@ -67,6 +78,7 @@ from repro_torch.models.transformer import (
     logits_last,
     model_param_defs,
     norm_param_defs,
+    run_encoder,
     stack_defs,
     stack_sizes,
     unstack_layers,
@@ -137,7 +149,7 @@ def build_tcn_bundle(cfg: ArchConfig, device="cuda") -> Bundle:
 
 
 # ---------------------------------------------------------------------------
-# Decoder-only LM bundle (dense and MoE families)
+# Transformer LM bundle (dense, MoE, vlm and encoder-decoder families)
 # ---------------------------------------------------------------------------
 
 def _kv_cache(cfg, L, B, S, dtype, device) -> dict:
@@ -157,8 +169,8 @@ def make_empty_cache(cfg: ArchConfig, B: int, S: int, dtype=torch.bfloat16,
                      device="cuda") -> dict:
     """Zeroed cache: {"dense": …, "moe": …} per layer stack, each GQA's
     {"k", "v"} (L, B, S, Hkv, Dh) or MLA's {"c_kv" (L, B, S, r),
-    "k_rope" (L, B, S, 1, dr)}; the recurrent families' trees (module
-    docstring)."""
+    "k_rope" (L, B, S, 1, dr)}; the encoder-decoder's and the recurrent
+    families' trees (module docstring)."""
     if cfg.family == "rwkv":
         return rwkv_empty_cache(cfg, B, dtype, device)
     if cfg.family == "hybrid":
@@ -166,6 +178,11 @@ def make_empty_cache(cfg: ArchConfig, B: int, S: int, dtype=torch.bfloat16,
                                            device),
                 "attn": _kv_cache(cfg, _zamba_n_apps(cfg), B, S, dtype,
                                   device)}
+    if cfg.family == "audio":
+        c = _kv_cache(cfg, cfg.n_layers, B, S, dtype, device)
+        c["cross"] = _kv_cache(cfg, cfg.n_layers, B, ENCDEC_ENC_LEN, dtype,
+                               device)
+        return {"self": c}
     per = _mla_cache if cfg.use_mla else _kv_cache
     n_moe, n_dense = stack_sizes(cfg)
     out = {}
@@ -190,15 +207,40 @@ def _lm_loss_fn(params, batch):
         "backward) comes with the LM training slice")
 
 
+def _lm_inputs(params, cfg, batch):
+    """Embed a batch as the reference's ``_lm_inputs_train``: (x (B, S,
+    D), labels (B, S), enc_h or None); labels default to the tokens, as
+    the reference's ``embed_fn`` fills them.  vlm: the patches in front of
+    the text, their labels -1; audio: the encoder over the frames."""
+    x = embed_tokens(params, cfg, batch["tokens"])
+    labels, enc_h = batch.get("labels", batch["tokens"]), None
+    if cfg.family == "vlm":
+        patches = batch["patches"]
+        x = torch.cat([patches.to(x.dtype), x], dim=1)
+        pad = torch.full(patches.shape[:2], -1, dtype=labels.dtype,
+                         device=labels.device)
+        labels = torch.cat([pad, labels], dim=1)
+    elif cfg.family == "audio":
+        enc_h = run_encoder(params, cfg, batch["frames"])
+    return x, labels, enc_h
+
+
 def build_lm_bundle(cfg: ArchConfig, device="cuda") -> Bundle:
     dev = require_device(device)
     defs = model_param_defs(cfg)
     adt = act_dtype(cfg)
 
     def prefill_fn(params, batch):
-        x = embed_tokens(params, cfg, batch["tokens"])
-        cache = make_empty_cache(cfg, x.shape[0], x.shape[1], adt, dev)
-        h, _ = backbone(params, cfg, x, 0, cache)
+        x, _, enc_h = _lm_inputs(params, cfg, batch)
+        B, S = x.shape[:2]
+        if enc_h is None:
+            cache = make_empty_cache(cfg, B, S, adt, dev)
+        else:  # the cross K/V take the frames' length, not ENCDEC_ENC_LEN
+            c = _kv_cache(cfg, cfg.n_layers, B, S, adt, dev)
+            c["cross"] = _kv_cache(cfg, cfg.n_layers, B, enc_h.shape[1], adt,
+                                   dev)
+            cache = {"self": c}
+        h, _ = backbone(params, cfg, x, 0, cache, enc_h)
         return logits_last(params, cfg, h), cache
 
     def step_fn(params, cache, batch):
@@ -212,8 +254,8 @@ def build_lm_bundle(cfg: ArchConfig, device="cuda") -> Bundle:
         return logits_last(params, cfg, h), cache
 
     def embed_fn(params, batch):
-        x = embed_tokens(params, cfg, batch["tokens"])
-        return backbone(params, cfg, x, 0, None)[0].mean(dim=1)
+        x, _, enc_h = _lm_inputs(params, cfg, batch)
+        return backbone(params, cfg, x, 0, None, enc_h)[0].mean(dim=1)
 
     return Bundle(
         cfg=cfg, param_defs=defs, device=dev, embed_fn=embed_fn,
@@ -384,26 +426,18 @@ def build_zamba_bundle(cfg: ArchConfig, device="cuda") -> Bundle:
         cache_specs=lambda B, S: make_empty_cache(cfg, B, S, adt, "meta"))
 
 
-# the slice of the port that brings each family not built here
-_LATER = {
-    "vlm": "the vlm/audio front-end and encoder-decoder slice",
-    "audio": "the vlm/audio front-end and encoder-decoder slice",
-}
-
 BUILDERS = {
     "tcn": build_tcn_bundle,
     "dense": build_lm_bundle,
     "moe": build_lm_bundle,
+    "vlm": build_lm_bundle,
+    "audio": build_lm_bundle,
     "rwkv": build_rwkv_bundle,
     "hybrid": build_zamba_bundle,
 }
 
 
 def build_bundle(cfg: ArchConfig, device="cuda") -> Bundle:
-    if cfg.family in BUILDERS:
-        return BUILDERS[cfg.family](cfg, device)
-    if cfg.family in _LATER:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet; it comes "
-            f"with {_LATER[cfg.family]}")
-    raise ValueError(f"unknown family {cfg.family!r}")
+    if cfg.family not in BUILDERS:
+        raise ValueError(f"unknown family {cfg.family!r}")
+    return BUILDERS[cfg.family](cfg, device)

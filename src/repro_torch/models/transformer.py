@@ -1,12 +1,15 @@
-"""Decoder-only transformer assembly, dense and MoE families, forward only.
+"""Transformer assembly: the dense, MoE, vlm and encoder-decoder audio
+families, forward only.
 
-The port of ``repro/models/transformer.py`` without the encoder-decoder (a
-later slice): param declarations in the reference's names, shapes and init
-kinds, GQA and MLA (DeepSeek-V2 multi-head latent) attention against an
-optional cache, the layer body (sequential or ``parallel_block`` residual,
-a dense MLP or the MoE FFN of ``models/moe.py``), the two layer stacks
-(``layers``: the dense ones, then ``moe_layers``), embedding and the
-LM-head logits.
+The port of ``repro/models/transformer.py``: param declarations in the
+reference's names, shapes and init kinds, GQA and MLA (DeepSeek-V2
+multi-head latent) attention against an optional cache, cross attention
+(K/V from the encoder output, or from the cached cross K/V), the layer
+body (sequential or ``parallel_block`` residual, a dense MLP or the MoE
+FFN of ``models/moe.py``, then the cross-attention block of a decoder
+layer with its own norm), the layer stacks (``layers``: the dense ones,
+then ``moe_layers``; the encoder-decoder's ``enc_layers`` and decoder
+``layers``), the non-causal encoder, embedding and the LM-head logits.
 
 The reference scans the stacked layer axis with ``jax.lax.scan``; here
 ``scan_layers`` loops over it (nothing is differentiated, so there are no
@@ -14,11 +17,14 @@ remat groups).  A cache is a dict of (L, B, S_max, Hkv, Dh) tensors that
 the layers update IN PLACE (a cached call returns the same dict): the
 session layer owns its cache grid, and copying it per step would move the
 whole cache.  MLA caches the compressed latent instead: {"c_kv" (L, B,
-S_max, r), "k_rope" (L, B, S_max, 1, dr)}.  ``pos`` is a Python int (the
-uncached prefill, as in the reference) or a tensor, 0-d or per lane
-(B,): each lane writes its K/V rows at its own position and attends over
-its own length, which is how the session layer runs every slot at its
-own position in one call.  As
+S_max, r), "k_rope" (L, B, S_max, 1, dr)}.  The encoder-decoder's cache
+is {"self": {"k", "v", "cross": {"k", "v"} (L, B, S_enc, Hkv, Dh)}}: a
+prefill with the encoder output fills "cross" (the caller sizes it to the
+frames), every other cached call reads it and never writes it.  ``pos``
+is a Python int (the uncached prefill, as in the reference) or a tensor,
+0-d or per lane (B,): each lane writes its K/V rows at its own position
+and attends over its own length, which is how the session layer runs
+every slot at its own position in one call.  As
 ``jax.lax.dynamic_update_slice`` does, a write that would run past the
 cache is moved back to end at its last row (only masked steps of a lane
 at ``seq_cap`` reach it; their rows are never read).
@@ -117,11 +123,15 @@ def mlp_param_defs(cfg: ArchConfig) -> dict:
     return defs
 
 
-def layer_param_defs(cfg: ArchConfig, *, moe: bool = False) -> dict:
+def layer_param_defs(cfg: ArchConfig, *, moe: bool = False,
+                     cross: bool = False) -> dict:
     defs = {"attn_norm": norm_param_defs(cfg), "attn": attn_param_defs(cfg)}
     if not cfg.parallel_block:
         defs["mlp_norm"] = norm_param_defs(cfg)
     defs["mlp"] = moe_param_defs(cfg) if moe else mlp_param_defs(cfg)
+    if cross:
+        defs["cross_norm"] = norm_param_defs(cfg)
+        defs["cross"] = attn_param_defs(cfg.replace(use_mla=False))
     return defs
 
 
@@ -132,16 +142,22 @@ def stack_defs(defs, n: int):
 
 
 def model_param_defs(cfg: ArchConfig) -> dict:
-    if cfg.family not in ("dense", "moe") or cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: only the dense and MoE decoder-only families are "
-            "ported")
+    """The dense, MoE and vlm trees (the two decoder stacks), or the
+    encoder-decoder's (``enc_layers``, ``enc_norm`` and the decoder
+    ``layers`` with cross attention)."""
     D, V = cfg.d_model, cfg.vocab_size
     defs = {
         "embed": ParamDef((V, D), ("vocab", "embed"), init="embed"),
         "final_norm": norm_param_defs(cfg),
         "lm_head": ParamDef((D, V), ("embed", "vocab")),
     }
+    if cfg.is_encdec:
+        defs["enc_layers"] = stack_defs(layer_param_defs(cfg),
+                                        cfg.n_enc_layers)
+        defs["enc_norm"] = norm_param_defs(cfg)
+        defs["layers"] = stack_defs(layer_param_defs(cfg, cross=True),
+                                    cfg.n_layers)
+        return defs
     n_moe, n_dense = stack_sizes(cfg)
     if n_dense:
         defs["layers"] = stack_defs(layer_param_defs(cfg), n_dense)
@@ -158,7 +174,11 @@ def stack_sizes(cfg: ArchConfig) -> tuple[int, int]:
     return n_moe, cfg.n_layers - n_moe
 
 
+# (param stack, cache part, MoE) of the decoder, in model order
 STACKS = (("layers", "dense", False), ("moe_layers", "moe", True))
+ENCDEC_STACKS = (("layers", "self", False),)
+# every stacked layer tree a params dict may hold
+LAYER_STACKS = ("layers", "moe_layers", "enc_layers")
 
 
 def unstack_layers(stacked) -> list:
@@ -184,9 +204,9 @@ def bake_lm_params(params: dict, cfg: ArchConfig) -> dict:
     each layer stack as a list of per-layer views.  Idempotent: a baked
     tree comes back as it is."""
     dtype = act_dtype(cfg)
-    stacks = [name for name, _, _ in STACKS]
-    out = {k: _bake(v, dtype) for k, v in params.items() if k not in stacks}
-    for name in stacks:
+    out = {k: _bake(v, dtype) for k, v in params.items()
+           if k not in LAYER_STACKS}
+    for name in LAYER_STACKS:
         if name not in params:
             continue
         layers = params[name]
@@ -217,34 +237,55 @@ def _write_rows(buf, new, pos):
     buf.index_put_((lanes, rows), new)
 
 
-def gqa_attn(p, cfg: ArchConfig, x, rope_cs, cache, pos, *, causal=True):
-    """Self-attention with an optional KV cache (``cache`` = this layer's
-    {"k", "v"} (B, S_max, Hkv, Dh) views, written in place)."""
+def gqa_attn(p, cfg: ArchConfig, x, rope_cs, cache, pos, *, causal=True,
+             kv_x=None, cross_cached=False):
+    """Self- or cross-attention with an optional cache (this layer's
+    {"k", "v"} views).  The reference's modes, chosen by the caller:
+
+      self, no cache        training-shaped calls and the encoder
+      self, cache + pos     prefill or a step: K/V rows written in place
+      cross, kv_x           K/V from the encoder output ``kv_x`` (no rope,
+                            not causal); with a cache, copied into it
+      cross, cross_cached   the cached cross K/V, read and never written
+    """
     B, S, _ = x.shape
     H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
     q = x @ p["wq"].to(x.dtype)
-    k = x @ p["wk"].to(x.dtype)
-    v = x @ p["wv"].to(x.dtype)
     if "bq" in p:
         q = q + p["bq"].to(x.dtype)
-        k = k + p["bk"].to(x.dtype)
-        v = v + p["bv"].to(x.dtype)
-    q, k, v = q.view(B, S, H, Dh), k.view(B, S, Hkv, Dh), v.view(B, S, Hkv, Dh)
+    q = q.view(B, S, H, Dh)
     if rope_cs is not None:
         cos, sin = rope_cs
-        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+        q = apply_rope(q, cos, sin)
     kv_len, q_offset = None, 0
-    if cache is not None:
-        _write_rows(cache["k"], k, pos)
-        _write_rows(cache["v"], v, pos)
+    if cross_cached:
         k, v = cache["k"], cache["v"]
-        kv_len, q_offset = pos + S, pos
+    else:
+        src = x if kv_x is None else kv_x
+        k = src @ p["wk"].to(x.dtype)
+        v = src @ p["wv"].to(x.dtype)
+        if "bk" in p:
+            k = k + p["bk"].to(x.dtype)
+            v = v + p["bv"].to(x.dtype)
+        k, v = k.view(B, -1, Hkv, Dh), v.view(B, -1, Hkv, Dh)
+        if rope_cs is not None and kv_x is None:
+            k = apply_rope(k, cos, sin)
+        if kv_x is not None and cache is not None:
+            # the cross prefill: the leaves are the frames' length
+            cache["k"].copy_(k)
+            cache["v"].copy_(v)
+        elif cache is not None:
+            _write_rows(cache["k"], k, pos)
+            _write_rows(cache["v"], v, pos)
+            k, v = cache["k"], cache["v"]
+            kv_len, q_offset = pos + S, pos
     if cfg.attn_kv_repeat and Hkv < H and S > 1:
         # the reference repeats KV to full heads for multi-token calls (a
         # sharding device there); decode (S == 1) attends grouped
         k = torch.repeat_interleave(k, H // Hkv, dim=2)
         v = torch.repeat_interleave(v, H // Hkv, dim=2)
-    out = attention(q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len,
+    out = attention(q, k, v, causal=causal and kv_x is None
+                    and not cross_cached, q_offset=q_offset, kv_len=kv_len,
                     chunked_threshold=cfg.attn_chunk_threshold)
     return out.reshape(B, S, H * Dh) @ p["wo"].to(x.dtype)
 
@@ -312,8 +353,11 @@ def mla_attn(p, cfg: ArchConfig, x, rope_cs, cache, pos):
 # ---------------------------------------------------------------------------
 
 def layer_fwd(p, cfg: ArchConfig, x, rope_cs, cache, pos, *,
-              moe: bool = False, causal=True):
-    """One transformer layer; updates ``cache`` in place.  Returns (x,
+              moe: bool = False, causal=True, enc_h=None):
+    """One transformer layer; updates ``cache`` in place.  A decoder layer
+    of the encoder-decoder ends with cross attention (its own norm, after
+    the MLP): over ``enc_h`` when given (filling ``cache["cross"]`` when
+    cached), else over the cached ``cache["cross"]``.  Returns (x,
     metrics): the MoE FFN's {"moe_aux", "moe_dropped"}, else {}."""
     h = apply_norm(cfg.norm_type, p, "attn_norm", x)
     if cfg.use_mla:
@@ -328,24 +372,33 @@ def layer_fwd(p, cfg: ArchConfig, x, rope_cs, cache, pos, *,
 
     if cfg.parallel_block:
         m, metrics = ffn(h)
-        return x + a + m, metrics
-    x = x + a
-    m, metrics = ffn(apply_norm(cfg.norm_type, p, "mlp_norm", x))
-    return x + m, metrics
+        x = x + a + m
+    else:
+        x = x + a
+        m, metrics = ffn(apply_norm(cfg.norm_type, p, "mlp_norm", x))
+        x = x + m
+    if enc_h is not None or (cache is not None and "cross" in cache):
+        h = apply_norm(cfg.norm_type, p, "cross_norm", x)
+        x = x + gqa_attn(p["cross"], cfg, h, None,
+                         None if cache is None else cache["cross"], None,
+                         causal=False, kv_x=enc_h,
+                         cross_cached=enc_h is None)
+    return x, metrics
 
 
 def scan_layers(layers, cfg: ArchConfig, x, rope_cs, cache, pos, *,
-                moe: bool = False, causal=True):
+                moe: bool = False, causal=True, enc_h=None):
     """One homogeneous layer stack: ``layers`` a stacked tree or a list of
-    per-layer trees (``bake_lm_params``); ``cache`` the stack's cache dict
+    per-layer trees (``bake_lm_params``); ``cache`` the stack's cache tree
     of stacked (L, B, ...) leaves, or None.  Returns (x, metrics), each
     metric the mean over the stack's layers (the reference's)."""
     if isinstance(layers, dict):
         layers = unstack_layers(layers)
     per = []
     for i, p in enumerate(layers):
-        c = None if cache is None else {k: v[i] for k, v in cache.items()}
-        x, m = layer_fwd(p, cfg, x, rope_cs, c, pos, moe=moe, causal=causal)
+        c = None if cache is None else tree_map(lambda v, i=i: v[i], cache)
+        x, m = layer_fwd(p, cfg, x, rope_cs, c, pos, moe=moe, causal=causal,
+                         enc_h=enc_h)
         per.append(m)
     metrics = {k: torch.stack([m[k] for m in per]).mean()
                for k in (per[0] if per else {})}
@@ -356,26 +409,40 @@ def embed_tokens(params, cfg: ArchConfig, tokens):
     return params["embed"][tokens.long()].to(act_dtype(cfg))
 
 
-def backbone(params, cfg: ArchConfig, x, pos, cache):
-    """Run the decoder stacks (the dense ``layers``, then ``moe_layers``)
-    on embedded ``x`` (B, S, D) from position ``pos``; ``cache`` is the
-    bundle's cache dict ({"dense", "moe"}) or None.  Returns (the final
-    normed hidden states, metrics: the MoE stack's means)."""
+def _rope(cfg: ArchConfig, positions, dim: int):
+    return rope_angles(positions, int(dim * cfg.rotary_frac), cfg.rope_theta)
+
+
+def backbone(params, cfg: ArchConfig, x, pos, cache, enc_h=None):
+    """Run the decoder stacks (the dense ``layers``, then ``moe_layers``;
+    the encoder-decoder's ``layers`` against ``cache["self"]`` and
+    ``enc_h`` or the cached cross K/V) on embedded ``x`` (B, S, D) from
+    position ``pos``; ``cache`` is the bundle's cache dict or None.
+    Returns (the final normed hidden states, metrics: the MoE stack's
+    means)."""
     S = x.shape[1]
     ar = torch.arange(S, device=x.device)
     positions = ar + (pos.reshape(-1, 1) if isinstance(pos, torch.Tensor)
                       and pos.dim() else pos)
-    rope_dim = int((cfg.qk_rope_dim if cfg.use_mla else cfg.dh)
-                   * cfg.rotary_frac)
-    cos, sin = rope_angles(positions, rope_dim, cfg.rope_theta)
+    rope = _rope(cfg, positions, cfg.qk_rope_dim if cfg.use_mla else cfg.dh)
     metrics = {}
-    for name, part, moe in STACKS:
+    for name, part, moe in ENCDEC_STACKS if cfg.is_encdec else STACKS:
         if name in params:
-            x, m = scan_layers(params[name], cfg, x, (cos, sin),
+            x, m = scan_layers(params[name], cfg, x, rope,
                                None if cache is None else cache[part], pos,
-                               moe=moe)
+                               moe=moe, enc_h=enc_h)
             metrics.update(m)
     return apply_norm(cfg.norm_type, params, "final_norm", x), metrics
+
+
+def run_encoder(params, cfg: ArchConfig, frames):
+    """The non-causal encoder over the frame embeddings (B, S_enc, D):
+    rope over positions 0..S_enc-1, the ``enc_layers``, ``enc_norm``."""
+    x = frames.to(act_dtype(cfg))
+    rope = _rope(cfg, torch.arange(x.shape[1], device=x.device), cfg.dh)
+    x, _ = scan_layers(params["enc_layers"], cfg, x, rope, None, 0,
+                       causal=False)
+    return apply_norm(cfg.norm_type, params, "enc_norm", x)
 
 
 def logits_last(params, cfg: ArchConfig, hidden):

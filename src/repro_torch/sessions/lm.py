@@ -2,8 +2,8 @@
 chunked prefill, paged KV with copy-on-write prefix sharing.
 
 The port of ``repro/sessions/lm.py`` (every LM family the port builds:
-dense and MoE with GQA or MLA caches, RWKV, the zamba hybrid; ``mesh=``
-is not ported: the port runs on one card).  The slot-grid
+dense, MoE and vlm with GQA or MLA caches, the encoder-decoder, RWKV, the
+zamba hybrid; ``mesh=`` is not ported: the port runs on one card).  The slot-grid
 virtualization of the TCN service applies — more sessions than slots,
 LRU/cost eviction to a host parking lot, bit-identical resume in any
 slot — but a slot's state is a cache column (every cache leaf sliced
@@ -28,10 +28,14 @@ Recurrent leaves (RWKV's token-shift rows and wkv state, Mamba's conv
 ring and ssm state: no sequence axis) change at every step, so they are
 masked by value: the bundle's cached call returns them as new tensors and
 leaves the old ones intact, and the scan keeps ``torch.where(valid, new,
-old)`` per lane.  A service with such a leaf is not ``parallel_safe``: the
-chunk forms of these recurrences are reassociated, so it has no chunked
-prefill and no prefix sharing, and ``open_session`` feeds nothing: the
-first ``decode`` feeds the whole prompt as forced tokens.  Its parked blob
+old)`` per lane.  The encoder-decoder's cross K/V (ENCDEC_ENC_LEN rows, no
+sequence axis: no session entry point takes frames, so they stay zero, as
+in the reference) count as such leaves too, but a step returns them
+untouched, so they pass through the mask unread.  A service with such a
+leaf is not ``parallel_safe``: the chunk forms of these recurrences are
+reassociated, so it has no chunked prefill and no prefix sharing, and
+``open_session`` feeds nothing: the first ``decode`` feeds the whole
+prompt as forced tokens.  Its parked blob
 holds every recurrent leaf whole beside the KV rows [0, pos)
 (``kv_park_bytes`` = a fixed part + a part per position).
 
@@ -121,11 +125,14 @@ def recurrent_flags(seq_axes):
 
 def mask_recurrent(valid, new, old, batch_axes, rec):
     """The per-leaf masking of one step: KV leaves as the step left them
-    (masked by position), recurrent leaves ``lane_select``-ed."""
+    (masked by position), recurrent leaves ``lane_select``-ed.  A leaf
+    without a sequence axis that the step returned untouched (the very
+    tensor it was given: the encoder-decoder's cross K/V) passes through,
+    which is ``where(v, x, x)`` bit for bit without reading it."""
     if rec is None:
         return new
     return map_tree(lambda n, o, bax, r: lane_select(valid, n, o, bax)
-                    if r else n, new, old, batch_axes, rec)
+                    if r and n is not o else n, new, old, batch_axes, rec)
 
 
 def make_decode_scan(decode_fn, batch_axes, seq_axes):

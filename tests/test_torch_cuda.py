@@ -18,7 +18,12 @@ itself on the CPU (routing, top-k tie order and drop mask exact), and
 speculative decoding (scan mode equal to plain decode, parallel mode
 paged == dense); the recurrent families (rwkv6-1.6b and zamba2-1.2b cut
 narrow): the same invariants, a masked lane's cache frozen by value, the
-baked tree, and the alive-masked verify scans equal to plain decode.
+baked tree, and the alive-masked verify scans equal to plain decode; the
+vlm and encoder-decoder families (internvl2-76b and seamless-m4t-large-v2
+cut narrow): prefill, decode and embed on the card against the CPU (the
+chunked non-causal encoder too), the service invariants, the cross
+leaves' pass-through equal to ``lane_select`` bit for bit, and
+``proto_extract`` at their embedding widths (V = 1024, 8192).
 Marked ``cuda``; every test skips when no card is present.  This file
 imports no JAX, so it runs on a machine that has only PyTorch:
 
@@ -1140,3 +1145,155 @@ def test_recurrent_speculative_on_card(dev, name):
             assert acc == sp.accepted
     with pytest.raises(ValueError, match="parallel verify"):
         SpeculativeDecoder(plain, verify="parallel")
+
+
+# ---------------------------------------------------------------------------
+# the vlm and encoder-decoder families on the card
+# ---------------------------------------------------------------------------
+
+def _encdec(dev, name, **over):
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_bundle
+
+    over = dict(n_layers=2, d_model=256, d_ff=512, vocab_size=512,
+                n_heads=4, n_kv_heads=2 if name == "internvl2-76b" else 4,
+                head_dim=64, **over)
+    cfg = get_config(name).smoke().replace(**over)
+    bundle = build_bundle(cfg, dev)
+    return bundle, bundle.init(torch.Generator(device=dev).manual_seed(0))
+
+
+def _front(cfg, B, dev, seed=2, n_frames=40):
+    g = torch.Generator().manual_seed(seed)
+    if cfg.family == "vlm":
+        x = torch.randn((B, cfg.n_patches, cfg.d_model), generator=g)
+        return {"patches": (x * 0.5).to(torch.bfloat16).to(dev)}
+    x = torch.randn((B, n_frames, cfg.d_model), generator=g)
+    return {"frames": (x * 0.5).to(torch.bfloat16).to(dev)}
+
+
+def _close_bf16(got, want):
+    scale = max(1.0, float(want.float().abs().max()))
+    assert float((got.float().cpu() - want.float().cpu()).abs().max()) \
+        <= 5e-2 * scale
+
+
+@pytest.mark.parametrize("threshold", [4096, 16])
+@pytest.mark.parametrize("name", ["internvl2-76b", "seamless-m4t-large-v2"])
+def test_encdec_bundles_card_match_cpu(no_tf32, name, threshold):
+    """prefill (the front end and 12 tokens), a decode step after it and
+    embed on the card against the same bundle on the CPU, bf16; at
+    threshold 16 the encoder and the cross prefill take the chunked
+    non-causal path."""
+    from repro_torch.models import build_bundle
+    from repro_torch.utils.trees import tree_leaves, tree_map
+
+    dev = no_tf32
+    bundle, params = _encdec(dev, name, attn_chunk_threshold=threshold)
+    cpu = build_bundle(bundle.cfg, "cpu")
+    p_cpu = tree_map(lambda t: t.cpu(), params)
+    rng = np.random.default_rng(3)
+    toks = torch.from_numpy(rng.integers(0, 512, (2, 12)).astype(np.int32))
+    batch = {"tokens": toks.to(dev), **_front(bundle.cfg, 2, dev)}
+    batch_cpu = {k: v.cpu() for k, v in batch.items()}
+    with torch.no_grad():
+        lg, cache = bundle.prefill_fn(params, batch)
+        lg_c, cache_c = cpu.prefill_fn(p_cpu, batch_cpu)
+        _close_bf16(lg, lg_c)
+        for a, b in zip(tree_leaves(cache), tree_leaves(cache_c)):
+            _close_bf16(a, b)
+        pos = 12 + (bundle.cfg.n_patches if name == "internvl2-76b" else 0)
+        grow = lambda a: torch.nn.functional.pad(a, (0, 0, 0, 0, 0, 1)) \
+            if a.shape[2] == pos else a
+        nxt = toks[:, :1]
+        d, _ = bundle.decode_fn(params, tree_map(grow, cache), {
+            "tokens": nxt.to(dev), "pos": pos})
+        d_c, _ = cpu.decode_fn(p_cpu, tree_map(grow, cache_c), {
+            "tokens": nxt, "pos": pos})
+        _close_bf16(d, d_c)
+        _close_bf16(bundle.embed_fn(params, batch),
+                    cpu.embed_fn(p_cpu, batch_cpu))
+    assert bool(torch.isfinite(lg).all() & torch.isfinite(d).all())
+
+
+@pytest.mark.parametrize("name", ["internvl2-76b", "seamless-m4t-large-v2"])
+def test_encdec_invariants_bit_exact_on_card(dev, name):
+    """Token prompts (seamless: token by token, the cross leaves zero and
+    dense per slot): t_chunk 16 == 1, paged == dense and park/resume
+    through evictions, tokens and every cache leaf bit for bit."""
+    bundle, params = _encdec(dev, name)
+    prompts = _lm_prompts()
+    runs = {}
+    for key, kw in (("dense", {}), ("t1", {"t_chunk": 1}),
+                    ("paged", {"paged": True})):
+        svc = _lm_svc(bundle, params, **kw)
+        assert svc.parallel_safe == (name == "internvl2-76b")
+        sids = [svc.open_session(p) for p in prompts]
+        out = svc.decode({s: 16 for s in sids})
+        runs[key] = ([out[s] for s in sids], _live_bits(svc, sids))
+    for key in ("t1", "paged"):
+        assert runs[key][0] == runs["dense"][0], key
+        assert all(np.array_equal(a, b) for a, b in
+                   zip(runs[key][1], runs["dense"][1])), key
+    svc = _lm_svc(bundle, params, max_sessions=8)
+    sids = [svc.open_session(p) for p in prompts + prompts]
+    got = {s: [] for s in sids}
+    for wave in (sids[:4], sids[4:], sids[:4], sids[4:]):
+        for s, t in svc.decode({s: 8 for s in wave}).items():
+            got[s] += t
+    assert svc.stats()["evictions"] >= 8
+    assert [got[s] for s in sids] == runs["dense"][0] * 2
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_cross_pass_through_equals_lane_select_on_card(dev, paged,
+                                                       monkeypatch):
+    """A seamless step returns the cross leaves untouched and the scan
+    passes them through the value mask unread; a scan that
+    ``lane_select``s them gives the same tokens and cache bits, through a
+    ragged dispatch."""
+    from repro_torch.sessions import lm as lm_mod
+
+    bundle, params = _encdec(dev, "seamless-m4t-large-v2")
+    prompts = _lm_prompts()
+
+    def run():
+        svc = _lm_svc(bundle, params, paged=paged)
+        cross = svc.cache["self"]["cross"]["k"]
+        sids = [svc.open_session(p) for p in prompts]
+        out = svc.decode({sids[0]: 6, sids[2]: 3})
+        for s, t in svc.decode({s: 8 for s in sids}).items():
+            out[s] = out.get(s, []) + t
+        return svc, sids, out, cross
+
+    svc, sids, out, cross = run()
+    assert svc.cache["self"]["cross"]["k"] is cross
+    orig = lm_mod.lane_select
+    monkeypatch.setattr(lm_mod, "mask_recurrent", lambda v, n, o, b, r:
+                        lm_mod.map_tree(lambda x, y, bax, rec:
+                                        orig(v, x, y, bax) if rec else x,
+                                        n, o, b, r))
+    svc2, sids2, out2, cross2 = run()
+    assert svc2.cache["self"]["cross"]["k"] is not cross2
+    assert [out2[s] for s in sids2] == [out[s] for s in sids]
+    assert all(np.array_equal(a, b) for a, b in
+               zip(_live_bits(svc2, sids2), _live_bits(svc, sids)))
+
+
+@pytest.mark.parametrize("V", [1024, 8192])
+@pytest.mark.parametrize("k", [1, 5])
+def test_proto_extract_wide_embeddings_match_plain(dev, V, k):
+    """proto_extract at the seamless (V = 1024) and internvl (V = 8192)
+    embedding widths, 5 ways: W bit for bit, b at rtol 1e-5, atol 1e-6."""
+    labels = np.repeat(np.arange(5), k)
+    emb = torch.tensor(np.random.default_rng(V + k).normal(
+        size=(len(labels), V)).astype(np.float32)).to(dev)
+    onehot = torch.tensor((labels[None] == np.arange(5)[:, None]).astype(
+        np.float32)).to(dev)
+    before = proto_extract.launches
+    w, b = proto_extract(emb, onehot, k)
+    wr, br = proto_extract_ref(emb, onehot, k)
+    torch.cuda.synchronize()
+    assert proto_extract.launches == before + 1
+    assert torch.equal(w, wr)
+    torch.testing.assert_close(b, br, rtol=1e-5, atol=1e-6)

@@ -301,27 +301,24 @@ def test_init_params_seeded_on_device():
 @pytest.mark.parametrize("name", [
     "rwkv6-1.6b", "zamba2-1.2b", "internvl2-76b", "seamless-m4t-large-v2"])
 def test_other_families_refuse(name):
-    """Every config is data, field for field the reference's.  The
-    recurrent families (rwkv6-1.6b, the zamba2-1.2b hybrid) build, with
-    the reference's cache tree shapes and dtypes at full size; a family
-    the port does not bring yet (vlm, audio) raises instead of building
-    something else."""
+    """Every config is data, field for field the reference's, and every
+    family builds, none refused (the recurrent families, the vlm and the
+    encoder-decoder audio family), with the reference's cache tree shapes
+    and dtypes at full size; LM training is still refused."""
     cfg = get_config(name)
     assert cfg == cfg.replace(**{k: v for k, v in vars(
         j_get_config(name)).items()})
-    if cfg.family in ("rwkv", "hybrid"):
-        b = build_bundle(cfg, "cpu")
-        got = b.cache_specs(8, 1024)
-        want = j_build_bundle(j_get_config(name)).cache_specs(8, 1024)
-        flat = lambda t: jax.tree_util.tree_flatten_with_path(
-            t, is_leaf=lambda x: not isinstance(x, dict))[0]
-        assert [(jax.tree_util.keystr(k), tuple(v.shape),
-                 str(v.dtype).split(".")[-1]) for k, v in flat(got)] == \
-            [(jax.tree_util.keystr(k), tuple(v.shape), str(v.dtype))
-             for k, v in flat(want)]
-        return
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        build_bundle(cfg, "cpu")
+    b = build_bundle(cfg, "cpu")
+    got = b.cache_specs(8, 1024)
+    want = j_build_bundle(j_get_config(name)).cache_specs(8, 1024)
+    flat = lambda t: jax.tree_util.tree_flatten_with_path(
+        t, is_leaf=lambda x: not isinstance(x, dict))[0]
+    assert [(jax.tree_util.keystr(k), tuple(v.shape),
+             str(v.dtype).split(".")[-1]) for k, v in flat(got)] == \
+        [(jax.tree_util.keystr(k), tuple(v.shape), str(v.dtype))
+         for k, v in flat(want)]
+    with pytest.raises(NotImplementedError, match="LM training"):
+        b.loss_fn(None, None)
 
 
 @pytest.mark.parametrize("name", ["deepseek-v2-lite-16b",
