@@ -12,7 +12,13 @@ non-zero):
            block, and its chunk entry (tcn_chunk, every block in one
            launch) over a 64-slot grid whose step counters sit just before,
            at and after every ring's wrap, ragged lengths from 0 to T,
-           functional and in place, bit for bit (h, rings, t);
+           functional and in place, bit for bit (h, rings, t); and
+           proto_extract's one-hot and label entries (labels outside
+           [0, N) too), W bit for bit;
+  timings  device, wrapper, plain and library ms at the main-path shapes;
+           proto_extract's two entries at N=5, Nk=25 beside the launch
+           floor, their bound and (floor + bound) / ms, and the device ops
+           adapt runs after the embedder (one, the kernel: checked);
   serve    StreamSessionService(fused=True) at the full chameleon-tcn width:
            64 sessions, 8 tenants, ragged 784-sample streams, 5-way 5-shot
            enrollment, poll (one tcn_chunk launch per tick and no plain ring
@@ -190,10 +196,11 @@ non-zero):
 
     python3 chip_smoke.py --compare-with DIR
 
-also builds the log2_matmul.cu and dilated_conv.cu of another tree's
-csrc/ directory DIR (e.g. a parent commit unpacked with git archive) and
-times those kernels beside this tree's at every op shape, in the same
-process on the same card.
+also builds the log2_matmul.cu, dilated_conv.cu and proto_extract.cu of
+another tree's csrc/ directory DIR (e.g. a parent commit unpacked with git
+archive) and times those kernels beside this tree's at every op shape
+(proto_extract at its three main-path shapes), in the same process on the
+same card.
 
 Launch counters are zeroed just before each main-path drive and read just
 after.  Each phase prints its wall seconds.  Timings are medians of
@@ -507,7 +514,10 @@ def phase_kernels(cfg, dev, seed: int = 0, embed_t: int = STREAM_LEN,
     (S=5, and S=10 in the cl phase) and a 5-shot episode (S=25)."""
     import numpy as np
     import torch
-    from repro_torch.kernels.proto_extract import proto_extract
+    from repro_torch.kernels.proto_extract import (
+        proto_extract,
+        proto_extract_labels,
+    )
     from repro_torch.kernels.ref import proto_extract_ref, tcn_block_fused
     from repro_torch.kernels.tcn_block import tcn_block
 
@@ -566,40 +576,46 @@ def phase_kernels(cfg, dev, seed: int = 0, embed_t: int = STREAM_LEN,
                                          "plain version")
                 n_cases += 2
     V = cfg.embed_dim
-    for (N, shots) in ((N_WAYS, [1] * N_WAYS), (N_WAYS, [K_SHOTS] * N_WAYS),
-                       (37, [1 + (j % 4) for j in range(37)])):
-        labels = np.repeat(np.arange(N), shots)
-        emb = torch.from_numpy(
-            rng.normal(size=(len(labels), V)).astype("float32")).to(dev)
-        onehot = torch.from_numpy(
-            (labels[None, :] == np.arange(N)[:, None]).astype("float32")).to(dev)
+    for (N, shots, outliers) in (
+            (N_WAYS, [1] * N_WAYS, ()), (N_WAYS, [K_SHOTS] * N_WAYS, ()),
+            (N_WAYS, [K_SHOTS] * N_WAYS, (-1, N_WAYS)),
+            (37, [1 + (j % 4) for j in range(37)], ())):
+        labels = np.concatenate([np.repeat(np.arange(N), shots), outliers])
+        emb, lab, onehot = proto_inputs(rng, labels, N, V, dev)
         kk = max(shots)
-        w, b = proto_extract(emb, onehot, kk)
         wr, br = proto_extract_ref(emb, onehot, kk)
-        sync(dev)
-        tag = f"proto_extract N={N} Nk={len(labels)}"
-        errs["proto_extract"] = max(errs["proto_extract"],
-                                    compare(tag + " W", w, wr, False),
-                                    compare(tag + " b", b, br, False))
-        n_cases += 1
+        for entry, (w, b) in (
+                ("onehot", proto_extract(emb, onehot, kk)),
+                ("labels", proto_extract_labels(emb, lab, N, kk))):
+            sync(dev)
+            tag = f"proto_extract {entry} N={N} Nk={len(labels)}"
+            if not torch.equal(w, wr):
+                raise AssertionError(f"{tag}: W differs from the plain "
+                                     "version")
+            errs["proto_extract"] = max(errs["proto_extract"],
+                                        compare(tag + " b", b, br, False))
+            n_cases += 1
     log(f"kernels {cfg.name}: {n_cases} cases agree with the plain versions "
-        f"(tcn_chunk bit for bit at T in {CHUNK_TS}, functional and in place);"
+        f"(tcn_chunk bit for bit at T in {CHUNK_TS}, functional and in place;"
+        f" proto_extract's W bit for bit, both entries, labels outside [0, N)"
+        f" counting for no way);"
         f" max abs err tcn_block={errs['tcn_block']:.3g} "
         f"proto_extract={errs['proto_extract']:.3g}")
     return errs
 
 
-def phase_timings(cfg, dev, seed: int = 1, embed_t: int = STREAM_LEN):
+def phase_timings(cfg, dev, floors: dict, smi: str, seed: int = 1,
+                  embed_t: int = STREAM_LEN):
     """Per-shape kernel / plain / library times at the main-path shapes:
     the serve tick (S=64, T=16) through tcn_chunk (in place, as the service
     calls it, and functional), the strip entry per block at the serve
     tick's and a 5-shot episode's embed shapes (S=25, T=``embed_t``), and
-    one proto_extract.  The tcn_block JSON entry gets the chunk's numbers:
-    the serve path's launch."""
+    proto_extract's two entries at a 5-way 5-shot episode's (``
+    time_proto_extract``).  The tcn_block JSON entry gets the chunk's
+    numbers: the serve path's launch."""
     import numpy as np
     import torch
-    from repro_torch.kernels.proto_extract import proto_extract
-    from repro_torch.kernels.ref import proto_extract_ref, tcn_block_fused
+    from repro_torch.kernels.ref import tcn_block_fused
     from repro_torch.kernels.tcn_block import tcn_block
 
     rng = np.random.default_rng(seed)
@@ -664,34 +680,137 @@ def phase_timings(cfg, dev, seed: int = 1, embed_t: int = STREAM_LEN):
         f"bound_by={ch['bound_by']} (bytes={nb:.0f} flops={fl:.0f}; "
         f"fixed-order fp32 ceiling {fl / (PEAK_FP32_FLOPS / 2) * 1e3:.6f} "
         f"ms); functional call ms={functional_ms:.4f}")
-    V = cfg.embed_dim
-    labels = np.repeat(np.arange(N_WAYS), K_SHOTS)
+    labels = rng.permutation(np.repeat(np.arange(N_WAYS), K_SHOTS))
+    emb, lab, onehot = proto_inputs(rng, labels, N_WAYS, cfg.embed_dim, dev)
+    pe = time_proto_extract(emb, lab, onehot, K_SHOTS, dev, floors, smi,
+                            cfg.name)
+    return ch, pe
+
+
+def proto_inputs(rng, labels, N, V, dev):
+    """Seeded (Nk, V) embeddings for ``labels``, the labels on the card
+    (int64) and the (N, Nk) one-hot built by comparison (a label outside
+    [0, N) a zero column, as jax.nn.one_hot gives it)."""
+    import numpy as np
+    import torch
+
+    labels = np.asarray(labels, np.int64)
     emb = torch.from_numpy(
         rng.normal(size=(len(labels), V)).astype("float32")).to(dev)
     onehot = torch.from_numpy(
-        (labels[None, :] == np.arange(N_WAYS)[:, None]).astype("float32")).to(dev)
-    call = lambda: proto_extract(emb, onehot, K_SHOTS)
-    pe = {
-        "ms": device_ms(call, dev),
-        "wrapper_ms": time_ms(call, dev),
-        "plain_ms": time_ms(lambda: proto_extract_ref(emb, onehot, K_SHOTS),
-                            dev),
-    }
+        (labels[None, :] == np.arange(N)[:, None]).astype("float32")).to(dev)
+    return emb, torch.from_numpy(labels).to(dev), onehot
+
+
+# the driver's CUgraphNodeType values a captured adapt may hold
+GRAPH_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host",
+                    10: "alloc", 11: "free"}
+
+
+def adapt_device_ops(emb, labels, N, k) -> dict:
+    """The device work ``protonet.adapt`` puts on its stream after the
+    embedder: an identity embed_fn over ``emb``, one warm call, then one
+    call captured in a CUDA graph, whose nodes are counted by type through
+    the driver (cuGraphGetNodes, cuGraphNodeGetType), with the number of
+    proto_extract launches the capture made.  A capture records every
+    kernel, copy and fill the call enqueues.  (torch.profiler, which the
+    card test uses, returned no device op at all in this script's audio
+    timings phase, after the serve and kws phases' profiles.)"""
+    import ctypes
+
+    import torch
+    from repro_torch.core.protonet import adapt
+    from repro_torch.kernels.proto_extract import proto_extract
+
+    adapt(lambda _, x: x, None, emb, labels, N, k)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    before = proto_extract.launches
+    with torch.cuda.graph(graph):
+        adapt(lambda _, x: x, None, emb, labels, N, k)
+    launches = proto_extract.launches - before
+    cu = ctypes.CDLL("libcuda.so.1")
+    handle, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(handle, None, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if n.value and cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    ops = {"proto_extract launches": launches}
+    for node in nodes:
+        t = ctypes.c_int(-1)
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t)):
+            raise RuntimeError("cuGraphNodeGetType failed")
+        name = GRAPH_NODE_TYPES.get(t.value, f"type {t.value}")
+        ops[name] = ops.get(name, 0) + 1
+    del graph
+    return ops
+
+
+def time_proto_extract(emb, labels, onehot, k, dev, floors, smi, tag):
+    """Both proto_extract entries at one shape: device ms (CUDA-graph
+    replay), the wrapper's and the plain version's ms, the library call
+    (``torch.matmul`` + a bias reduction: never used by the port), the
+    bound of this call's bytes and operations, the launch floor, and the
+    share (floor + bound) / device ms.  Checks that ``adapt`` runs one
+    device op after the embedder, the kernel.  Returns the label entry's
+    numbers (the one ``adapt`` launches) with the one-hot entry's under
+    "onehot"."""
+    import torch
+    from repro_torch.kernels.proto_extract import (
+        proto_extract,
+        proto_extract_labels,
+    )
+    from repro_torch.kernels.ref import (
+        proto_extract_labels_ref,
+        proto_extract_ref,
+    )
+
+    N, (Nk, V) = onehot.shape[0], emb.shape
 
     def library():  # one PyTorch call per output; never used by the port
         w = torch.matmul(onehot, emb)
-        return w, -(w * w).sum(-1) * (1.0 / (2.0 * K_SHOTS))
+        return w, -(w * w).sum(-1) * (1.0 / (2.0 * k))
 
-    pe["library_ms"] = device_ms(library, dev)
-    nb = (emb.numel() + onehot.numel() + N_WAYS * V + N_WAYS) * 4
-    fl = 2 * N_WAYS * len(labels) * V + 2 * N_WAYS * V
-    pe["bound_ms"], pe["bound_by"] = bound(nb, fl)
-    log(f"timing proto_extract N={N_WAYS} Nk={len(labels)} V={V}: "
-        f"ms={pe['ms']:.4f} wrapper_ms={pe['wrapper_ms']:.4f} "
-        f"plain_ms={pe['plain_ms']:.4f} "
-        f"library_ms={pe['library_ms']:.4f} bound_ms={pe['bound_ms']:.8f} "
-        f"bound_by={pe['bound_by']}")
-    return ch, pe
+    library_ms = device_ms(library, dev)
+    # operations: the one-hot entry multiplies and adds every shot into
+    # every way, the label entry adds each in-range shot once; then 2 a
+    # column for the squares
+    counted = int(((labels >= 0) & (labels < N)).sum())
+    out = {}
+    for entry, call, plain, sel_bytes, ops in (
+            ("onehot", lambda: proto_extract(emb, onehot, k),
+             lambda: proto_extract_ref(emb, onehot, k), onehot.numel() * 4,
+             2 * N * Nk * V),
+            ("labels", lambda: proto_extract_labels(emb, labels, N, k),
+             lambda: proto_extract_labels_ref(emb, labels, N, k),
+             labels.numel() * labels.element_size(), counted * V)):
+        nb = emb.numel() * 4 + sel_bytes + N * (V + 1) * 4
+        bms, by = bound(nb, ops + 2 * N * V)
+        ms = device_ms(call, dev)
+        out[entry] = {"ms": ms, "wrapper_ms": time_ms(call, dev),
+                      "plain_ms": time_ms(plain, dev),
+                      "library_ms": library_ms, "bound_ms": bms,
+                      "bound_by": by, "launch_floor_ms": floors["empty"],
+                      "store_floor_ms": floors["store"],
+                      "floor_bound_share": (floors["empty"] + bms) / ms}
+    for entry, t in out.items():
+        log(f"timing proto_extract {entry} entry {tag} N={N} Nk={Nk} V={V}:"
+            f" ms={t['ms']:.5f} wrapper_ms={t['wrapper_ms']:.4f} plain_ms="
+            f"{t['plain_ms']:.4f} library_ms={t['library_ms']:.5f} "
+            f"bound_ms={t['bound_ms']:.7f} bound_by={t['bound_by']} launch "
+            f"floor {floors['empty']:.5f} ms (a store {floors['store']:.5f}),"
+            f" (floor + bound) / ms = "
+            f"{t['floor_bound_share']:.3f} [{smi}]")
+    ops = adapt_device_ops(emb, labels, N, k)
+    n_ops = sum(ops.values()) - ops["proto_extract launches"]
+    log(f"adapt {tag} N={N} Nk={Nk} V={V}: {n_ops} device op(s) after the "
+        f"embedder (a captured call's graph nodes): {ops}")
+    if ops != {"proto_extract launches": 1, "kernel": 1}:
+        raise RuntimeError(f"{tag}: adapt should run one proto_extract "
+                           "kernel after the embedder and nothing else")
+    return {"V": V, **out["labels"], "adapt_device_ops": n_ops,
+            "onehot": out["onehot"]}
 
 
 # ---------------------------------------------------------------------------
@@ -2138,17 +2257,20 @@ def phase_ops_main(dev, audio_cfg, seed: int = 5):
 
 
 def build_other_ops(csrc: Path):
-    """Compile another tree's log2_matmul.cu and dilated_conv.cu (its csrc/
-    directory) with this tree's nvcc flags into build/compare/ and bind
-    their C entries, which take the arguments this tree's tile-path and
-    conv entries take.  Returns (log2_matmul, dilated_conv)."""
+    """Compile another tree's log2_matmul.cu, dilated_conv.cu and
+    proto_extract.cu (its csrc/ directory) with this tree's nvcc flags into
+    build/compare/ and bind their C entries, which take the arguments this
+    tree's tile-path and conv entries take; proto_extract's one-hot entry
+    takes this tree's arguments, or those and a thread count before the
+    stream (its form in PRs 12-24).  Returns (log2_matmul, dilated_conv,
+    proto_extract, whether proto_extract takes the thread count)."""
     import ctypes
     from repro_torch.kernels import _build
 
     out = ROOT / "build" / "compare"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in ("log2_matmul", "dilated_conv"):
+    for name in ("log2_matmul", "dilated_conv", "proto_extract"):
         so = out / f"lib{name}.so"
         procs[name] = (so, subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(csrc), "-o", str(so),
@@ -2160,19 +2282,26 @@ def build_other_ops(csrc: Path):
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed for {csrc / name}.cu:\n{text}")
         fn = getattr(ctypes.CDLL(str(so)), name)
-        fn.argtypes = [_build.P] * 4 + [_build.I] * (4 if name == "log2_matmul"
-                                                     else 6) + [_build.P]
+        if name == "proto_extract":
+            threads = "int threads" in (csrc / f"{name}.cu").read_text()
+            fn.argtypes = [_build.P] * 4 + [_build.I] * 3 + [_build.F] + (
+                [_build.I] if threads else []) + [_build.P]
+        else:
+            fn.argtypes = [_build.P] * 4 + [_build.I] * (
+                4 if name == "log2_matmul" else 6) + [_build.P]
         fn.restype = ctypes.c_int
         fns.append(fn)
-    return tuple(fns)
+    return (*fns, threads)
 
 
 def phase_compare(dev, audio_cfg, fsl_cfg, csrc: Path, seed: int = 7):
-    """The other tree's log2_matmul and dilated_conv kernels beside this
-    tree's, on the same inputs in this process: device ms of both (and of
-    the library call) at every listed op shape; the other kernel's output
-    is held to this tree's at the ops tolerance.  Returns the shapes where
-    this tree's kernel is slower."""
+    """The other tree's log2_matmul, dilated_conv and proto_extract kernels
+    beside this tree's, on the same inputs in this process: device ms of
+    both (and of the library call: for proto_extract the matmul alone) at
+    every listed op shape, proto_extract at its three main-path shapes
+    with both of this tree's entries; the other kernel's output is held to
+    this tree's at the ops tolerance (proto_extract's W bit for bit).
+    Returns the shapes where this tree's kernel is slower."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -2180,7 +2309,7 @@ def phase_compare(dev, audio_cfg, fsl_cfg, csrc: Path, seed: int = 7):
     from repro_torch.kernels.log2_matmul import log2_matmul
     from repro_torch.quant.log2 import dequantize_log2, unpack_nibbles
 
-    old_mm, old_conv = build_other_ops(csrc)
+    old_mm, old_conv, old_pe, pe_threads = build_other_ops(csrc)
     stream = lambda: torch.cuda.current_stream(dev).cuda_stream
     rng = np.random.default_rng(seed)
     slower = []
@@ -2225,6 +2354,35 @@ def phase_compare(dev, audio_cfg, fsl_cfg, csrc: Path, seed: int = 7):
         one(f"dilated_conv {name} B={B} T={T} {Cin}->{Cout} K={K} d={d}", old,
             lambda: dilated_conv(x, w, b, d),
             lambda: F.conv1d(xl, wl, b, dilation=d))
+    from repro_torch.kernels.proto_extract import (
+        proto_extract,
+        proto_extract_labels,
+    )
+
+    for (V, k) in ((fsl_cfg.embed_dim, K_SHOTS), (1024, 1), (8192, 1)):
+        labels = rng.permutation(np.repeat(np.arange(N_WAYS), k))
+        emb, lab, onehot = proto_inputs(rng, labels, N_WAYS, V, dev)
+        w = torch.empty((N_WAYS, V), device=dev)
+        b = torch.empty((N_WAYS,), device=dev)
+        threads = (max(32, 1 << (min(V, 1024) - 1).bit_length()),) \
+            if pe_threads else ()
+        old = lambda: old_pe(emb.data_ptr(), onehot.data_ptr(), w.data_ptr(),
+                             b.data_ptr(), N_WAYS, len(labels), V,
+                             1.0 / (2.0 * k), *threads, stream())
+        if old() != 0:
+            raise RuntimeError("the other proto_extract did not launch")
+        nw, nb = proto_extract(emb, onehot, k)
+        sync(dev)
+        if not torch.equal(w, nw):
+            raise RuntimeError(f"compare proto_extract V={V}: W differs")
+        allclose(f"compare proto_extract V={V} b", b, nb, RTOL, ATOL)
+        tag = f"proto_extract N={N_WAYS} Nk={len(labels)} V={V}"
+        one(tag + " one-hot entry", old,
+            lambda: proto_extract(emb, onehot, k),
+            lambda: torch.matmul(onehot, emb))
+        one(tag + " label entry", old,
+            lambda: proto_extract_labels(emb, lab, N_WAYS, k),
+            lambda: torch.matmul(onehot, emb))
     log(f"compare with {csrc}: this tree's kernel is slower at "
         f"{len(slower)} shapes{': ' + '; '.join(slower) if slower else ''}")
     return slower
@@ -2824,11 +2982,14 @@ def lm_launch_counts() -> dict:
 
 def zero_launch_counts() -> None:
     from repro_torch.kernels import dilated_conv, log2_matmul
-    from repro_torch.kernels.proto_extract import proto_extract
+    from repro_torch.kernels.proto_extract import (
+        proto_extract,
+        proto_extract_labels,
+    )
     from repro_torch.kernels.tcn_block import tcn_block, tcn_chunk
 
-    for k in (tcn_block, tcn_chunk, proto_extract, log2_matmul,
-              dilated_conv):
+    for k in (tcn_block, tcn_chunk, proto_extract, proto_extract_labels,
+              log2_matmul, dilated_conv):
         k.launches = 0
 
 
@@ -4321,19 +4482,22 @@ def fe_serve(bundle, params, cfg, dev, rng, name, smi) -> dict:
     return out
 
 
-def fe_fewshot(bundle, params, cfg, dev, rng, name, smi, floor_ms) -> dict:
+def fe_fewshot(bundle, params, cfg, dev, rng, name, smi, floors) -> dict:
     """A 5-way 1-shot ``protonet.adapt`` over the bundle's ``embed_fn``
     (each shot: the front end's embeddings and 16 tokens; bf16 embeddings
     upcast to fp32, V = d_model), counters zeroed just before and read
     just after (one proto_extract launch); W/b against support_sums +
     pn_fc_from_sums at rtol 1e-5, atol 1e-6; the kernel against its plain
-    version on the same embeddings; proto_extract timed at this shape
-    (device ms from CUDA-graph replay, the wrapper, the plain version, the
-    library call) beside the launch floor and its bound."""
+    version on the same embeddings, both entries, W bit for bit;
+    proto_extract's two entries timed at this shape and adapt's device ops
+    after the embedder counted (``time_proto_extract``)."""
     import numpy as np
     import torch
     from repro_torch.core import protonet
-    from repro_torch.kernels.proto_extract import proto_extract
+    from repro_torch.kernels.proto_extract import (
+        proto_extract,
+        proto_extract_labels,
+    )
     from repro_torch.kernels.ref import proto_extract_ref
 
     key, emb_in = fe_front(cfg, rng, FE_WAYS, dev)
@@ -4358,40 +4522,26 @@ def fe_fewshot(bundle, params, cfg, dev, rng, name, smi, floor_ms) -> dict:
         protonet.support_sums(emb, labels, FE_WAYS), 1)
     err = max(allclose(f"{name} adapt W", w, pw, 1e-5, 1e-6),
               allclose(f"{name} adapt b", b, pb, 1e-5, 1e-6))
-    onehot = torch.nn.functional.one_hot(labels.long(), FE_WAYS).to(
-        torch.float32).T.contiguous()
-    call = lambda: proto_extract(emb, onehot, 1)
-    kern_w, kern_b = call()
+    onehot = (labels.long()[None, :] == torch.arange(
+        FE_WAYS, device=dev)[:, None]).to(torch.float32)
     rw, rb = proto_extract_ref(emb, onehot, 1)
-    if not torch.equal(kern_w, rw):
-        raise RuntimeError(f"{name}: proto_extract W differs from its plain "
-                           "version")
-    err = max(err, allclose(f"{name} proto_extract b", kern_b, rb, 1e-5,
-                            1e-6))
-    V = emb.shape[1]
-
-    def library():  # one PyTorch call per output; never used by the port
-        m = torch.matmul(onehot, emb)
-        return m, -(m * m).sum(-1) * 0.5
-
-    t = {"V": V, "ms": device_ms(call, dev), "wrapper_ms": time_ms(call, dev),
-         "plain_ms": time_ms(lambda: proto_extract_ref(emb, onehot, 1), dev),
-         "library_ms": device_ms(library, dev)}
-    nb = (emb.numel() + onehot.numel() + FE_WAYS * V + FE_WAYS) * 4
-    fl = 2 * FE_WAYS * FE_WAYS * V + 2 * FE_WAYS * V
-    t["bound_ms"], t["bound_by"] = bound(nb, fl)
+    for entry, (kern_w, kern_b) in (
+            ("onehot", proto_extract(emb, onehot, 1)),
+            ("labels", proto_extract_labels(emb, labels, FE_WAYS, 1))):
+        if not torch.equal(kern_w, rw):
+            raise RuntimeError(f"{name}: proto_extract's {entry} entry W "
+                               "differs from its plain version")
+        err = max(err, allclose(f"{name} proto_extract {entry} b", kern_b,
+                                rb, 1e-5, 1e-6))
+    t = time_proto_extract(emb, labels, onehot, 1, dev, floors, smi, name)
     log(f"{name}: 5-way 1-shot adapt over embed_fn ({key} + 16 tokens a "
         f"shot) in {t_adapt * 1e3:.1f} ms, 1 proto_extract launch, W/b "
         f"within rtol 1e-5 / atol 1e-6 of the plain version (max |err| "
-        f"{err:.3g}); timing proto_extract N={FE_WAYS} Nk={FE_WAYS} V={V}: "
-        f"ms={t['ms']:.5f} (launch floor {floor_ms:.5f}) wrapper_ms="
-        f"{t['wrapper_ms']:.4f} plain_ms={t['plain_ms']:.4f} library_ms="
-        f"{t['library_ms']:.5f} bound_ms={t['bound_ms']:.7f} "
-        f"bound_by={t['bound_by']} [{smi}]")
+        f"{err:.3g}); proto_extract at V={emb.shape[1]} timed above")
     return {"launches": counts["proto_extract"], "err": err, "timing": t}
 
 
-def phase_frontend(cfg, dev, smi: str, floor_ms: float, seed: int = 24,
+def phase_frontend(cfg, dev, smi: str, floors: dict, seed: int = 24,
                    depth_note: str = "full depth") -> dict:
     """A front-end family at full width on seeded random weights drawn on
     the card and baked to bf16 (the baked decode equal to the fp32 tree's
@@ -4456,7 +4606,7 @@ def phase_frontend(cfg, dev, smi: str, floor_ms: float, seed: int = 24,
     out["serve"] = fe_serve(bundle, params, cfg, dev, rng, name, smi)
     torch.cuda.empty_cache()
     out["fewshot"] = fe_fewshot(bundle, params, cfg, dev, rng, name, smi,
-                                floor_ms)
+                                floors)
     del params
     torch.cuda.empty_cache()
     return out
@@ -4469,8 +4619,13 @@ def phase_frontend(cfg, dev, smi: str, floor_ms: float, seed: int = 24,
 EMPTY_KERNEL = r"""
 #include <cuda_runtime.h>
 __global__ void empty_kernel() {}
+__global__ void store_kernel(float* p) { *p = 1.0f; }
 extern "C" int launch_empty(void* stream) {
   empty_kernel<<<1, 1, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+extern "C" int launch_store(void* p, void* stream) {
+  store_kernel<<<1, 1, 0, (cudaStream_t)stream>>>((float*)p);
   return (int)cudaGetLastError();
 }
 """
@@ -4490,9 +4645,11 @@ def start_empty_build():
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
-def launch_floor(build, dev) -> float:
-    """Device ms per launch of the empty kernel, timed as every kernel's
-    ``ms`` is (``device_ms``: 20 launches captured in a CUDA graph)."""
+def launch_floor(build, dev) -> dict:
+    """Device ms per launch, timed as every kernel's ``ms`` is
+    (``device_ms``: 20 launches captured in a CUDA graph), of the empty
+    kernel ("empty": the launch floor) and of one thread storing one float
+    ("store": the least a kernel that writes its output takes)."""
     import ctypes
 
     import torch
@@ -4501,17 +4658,24 @@ def launch_floor(build, dev) -> float:
     text, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for the empty kernel:\n{text}")
-    fn = ctypes.CDLL(str(so)).launch_empty
-    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+    lib = ctypes.CDLL(str(so))
+    lib.launch_empty.argtypes = [ctypes.c_void_p]
+    lib.launch_store.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.launch_empty.restype = lib.launch_store.restype = ctypes.c_int
+    cell = torch.zeros(1, device=dev)
 
-    def call():
-        if fn(torch.cuda.current_stream(dev).cuda_stream) != 0:
-            raise RuntimeError("the empty kernel did not launch")
+    def call(fn, *args):
+        if fn(*args, torch.cuda.current_stream(dev).cuda_stream) != 0:
+            raise RuntimeError(f"{fn.__name__} did not launch")
 
-    ms = device_ms(call, dev)
-    log(f"launch floor: an empty kernel (1 thread) takes device ms={ms:.5f}"
-        " a launch, timed as every kernel's ms (CUDA-graph replay)")
-    return ms
+    floors = {"empty": device_ms(lambda: call(lib.launch_empty), dev),
+              "store": device_ms(lambda: call(lib.launch_store,
+                                              cell.data_ptr()), dev)}
+    log(f"launch floor: an empty kernel (1 thread) takes device ms="
+        f"{floors['empty']:.5f} a launch, one storing one float "
+        f"{floors['store']:.5f}, timed as every kernel's ms (CUDA-graph "
+        "replay)")
+    return floors
 
 
 # ---------------------------------------------------------------------------
@@ -4524,7 +4688,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--compare-with", type=Path, metavar="DIR",
                     help="another tree's csrc/ directory: time its "
-                         "log2_matmul and dilated_conv beside this tree's")
+                         "log2_matmul, dilated_conv and proto_extract "
+                         "beside this tree's")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4549,7 +4714,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
     dev = torch.device("cuda")
-    floor_ms = launch_floor(empty, dev)
+    floors = launch_floor(empty, dev)
     cfg = get_config("chameleon-tcn")
     audio_cfg = get_config("chameleon-tcn-audio")
     kws_cfg = get_config("chameleon-tcn-kws")
@@ -4562,7 +4727,8 @@ def main() -> int:
 
     errs = phase("kernels", phase_kernels, cfg, dev,
                  embed_s=(K_SHOTS, CL_SHOTS, N_WAYS * K_SHOTS))
-    tb_time, pe_time = phase("timings", phase_timings, cfg, dev)
+    tb_time, pe_time = phase("timings", phase_timings, cfg, dev, floors,
+                             smi)
     serve = phase("serve", phase_serve, cfg, dev)
     fsl = phase("fsl", phase_fsl, cfg, dev)
     train = phase("train", phase_train, cfg, dev)
@@ -4582,7 +4748,8 @@ def main() -> int:
     audio_errs = phase("audio kernels", phase_kernels, audio_cfg, dev,
                        embed_t=AUDIO_LEN,
                        ts=(1, 2, 4, 8, T_CHUNK, AUDIO_LEN))
-    phase("audio timings", phase_timings, audio_cfg, dev, embed_t=AUDIO_LEN)
+    phase("audio timings", phase_timings, audio_cfg, dev, floors, smi,
+          embed_t=AUDIO_LEN)
     audio = phase("audio", phase_audio, audio_cfg, dev)
     phase("lm", phase_lm, get_config("olmo-1b"), dev, smi)
     phase("lm qwen", phase_lm, get_config("qwen2.5-32b").replace(
@@ -4602,9 +4769,9 @@ def main() -> int:
     phase("recurrent zamba", phase_recurrent, get_config("zamba2-1.2b"),
           dev, smi)
     encdec = phase("encdec", phase_frontend,
-                   get_config("seamless-m4t-large-v2"), dev, smi, floor_ms)
+                   get_config("seamless-m4t-large-v2"), dev, smi, floors)
     vlm = phase("vlm", phase_frontend, get_config("internvl2-76b").replace(
-        n_layers=4), dev, smi, floor_ms,
+        n_layers=4), dev, smi, floors,
         depth_note="depth cut to 4 of its 80 layers")
     fewshot = [encdec["fewshot"], vlm["fewshot"]]
     if args.compare_with is not None:
@@ -4631,8 +4798,9 @@ def main() -> int:
          + sum(f["launches"] for f in fewshot),
          "max_abs_err": max([errs["proto_extract"]]
                             + [f["err"] for f in fewshot]),
+         # the label entry's times (adapt's launch) at N=5, Nk=25, V=64,
+         # the one-hot entry's under "onehot"
          "bound_peak": PEAK_NAMES[PEAK_FP32_FLOPS], **pe_time,
-         "launch_floor_ms": floor_ms,
          # the encdec and vlm phases' adapt over embed_fn (N=5, Nk=5)
          "at_lm_widths": [f["timing"] for f in fewshot]},
         {"name": "log2_matmul", "route": "cuda",

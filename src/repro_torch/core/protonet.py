@@ -5,9 +5,9 @@ The port of ``repro/core/protonet.py``.  With prototypes P_j = s^j / k
 (s^j = sum of the k support embeddings of way j), argmin_j ||P_j - x||^2
 is an FC layer with W_j = s^j and b_j = -(1/2k)||s^j||^2 followed by
 argmax: learning is a forward pass plus a segment sum.  ``adapt`` does
-steps 2+3 through the ``proto_extract`` kernel on CUDA tensors (its plain
-version on CPU tensors).  The prototype store keeps the reference's
-overflow contract.
+steps 2+3 through the ``proto_extract`` kernel's label entry on CUDA
+tensors (its plain version on CPU tensors).  The prototype store keeps
+the reference's overflow contract.
 """
 
 from __future__ import annotations
@@ -128,19 +128,24 @@ def adapt(embed_fn, params, support_batch, labels, n_ways: int, k: int,
     """End-to-end FSL (Fig. 6): embed the N*k support samples, then
     extract the FC params.  Returns (W, b).
 
-    The fp32 form goes through ``proto_extract`` (W and b in one pass,
-    from the one-hot dispatch matrix), resolved once here for the device
-    the embeddings land on.  The log2 form (Eq. 8) stays plain PyTorch:
-    its exponent doubling is already MatMul-free."""
+    The fp32 form goes through ``proto_extract``'s label entry (W and b
+    in one pass, straight from the labels: on the card one launch after
+    the embedder, on the CPU the plain version on the one-hot built by
+    comparison), the backend checked against the device the embeddings
+    land on.  A label outside [0, n_ways) counts for no way in either
+    form, as in the reference, whose ``jax.nn.one_hot`` gives it a zero
+    column.  The log2 form (Eq. 8) stays plain PyTorch: its exponent
+    doubling is already MatMul-free."""
     emb = embed_fn(params, support_batch).to(torch.float32).contiguous()
     if log2:
         w, b, _, _ = pn_fc_from_sums_log2(support_sums(emb, labels, n_ways), k)
         return w, b
-    from repro_torch.kernels.proto_extract import make_proto_extract_op
-    op = make_proto_extract_op(backend, emb.device)
-    onehot = torch.nn.functional.one_hot(labels.long(), n_ways).to(
-        torch.float32).T.contiguous()
-    return op(emb, onehot, k)
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.proto_extract import proto_extract_labels
+    dispatch.resolve(backend, emb.device)
+    if labels.dtype not in (torch.int32, torch.int64):
+        labels = labels.long()
+    return proto_extract_labels(emb, labels.contiguous(), n_ways, k)
 
 
 # ---------------------------------------------------------------------------

@@ -103,7 +103,11 @@ def build_all(names=None) -> dict[str, Path]:
 
 def load(name: str, signatures: dict) -> ctypes.CDLL:
     """The loaded library ``name``, built first if needed.  ``signatures``
-    maps each C entry to its argtypes; every entry returns a C int."""
+    maps each C entry to its argtypes; every entry returns a C int.  A
+    library already loaded is returned without taking the lock."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
     with _lock:
         lib = _libs.get(name)
         if lib is None:

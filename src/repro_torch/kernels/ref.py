@@ -2,6 +2,7 @@
 
 ``tcn_block``'s (``tcn_block_fused`` for the strip entry,
 ``tcn_chunk_plain`` for the chunk entry) and ``proto_extract``'s versions
+(``proto_extract_ref``, and ``proto_extract_labels_ref`` for the label entry)
 sum in the same fixed order as their CUDA kernels — taps j = 0..k-1
 outside, input channels in order inside, a separately rounded multiply
 and add per term (the kernels use ``__fmul_rn``/``__fadd_rn``, which the
@@ -175,6 +176,16 @@ def proto_extract_ref(emb: torch.Tensor, onehot: torch.Tensor, k: int):
         w = term if w is None else w + term
     b = -(w * w).sum(dim=-1) * (1.0 / (2.0 * k))
     return w, b
+
+
+def proto_extract_labels_ref(emb: torch.Tensor, labels: torch.Tensor,
+                             n_ways: int, k: int):
+    """``proto_extract_ref`` on the one-hot of ``labels`` (Nk,), built by
+    comparison as ``core/protonet.support_sums`` builds it: a label outside
+    [0, n_ways) gets a zero column, as ``jax.nn.one_hot`` gives it."""
+    ways = torch.arange(n_ways, device=labels.device)
+    onehot = (labels.long()[None, :] == ways[:, None]).to(emb.dtype)
+    return proto_extract_ref(emb, onehot.to(emb.device), k)
 
 
 def log2_matmul_ref(x: torch.Tensor, w_packed: torch.Tensor,

@@ -24,11 +24,17 @@ cut narrow): prefill, decode and embed on the card against the CPU (the
 chunked non-causal encoder too), the service invariants, the cross
 leaves' pass-through equal to ``lane_select`` bit for bit, and
 ``proto_extract`` at their embedding widths (V = 1024, 8192).
+``proto_extract``'s one-hot and label entries are held against the plain
+version at every shape its clusters, slab chunks, column tiles and
+unaligned copies take, labels outside [0, N) included; b repeats bit for
+bit at V = 8192; and ``adapt`` runs one device op, the kernel.
 Marked ``cuda``; every test skips when no card is present.  This file
 imports no JAX, so it runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+
+import time
 
 import numpy as np
 import pytest
@@ -40,7 +46,10 @@ from repro_torch.kernels.log2_matmul import (  # noqa: E402
     DECODE_MAX_M,
     log2_matmul,
 )
-from repro_torch.kernels.proto_extract import proto_extract  # noqa: E402
+from repro_torch.kernels.proto_extract import (  # noqa: E402
+    proto_extract,
+    proto_extract_labels,
+)
 from repro_torch.kernels.ref import (  # noqa: E402
     dilated_conv_ref,
     log2_matmul_ref,
@@ -195,20 +204,85 @@ def test_tcn_chunk_rejects_a_chunk_too_long(dev):
     assert tcn_chunk.launches == launches
 
 
-@pytest.mark.parametrize("n_ways,k", [(5, 1), (5, 5), (37, 3)])
-def test_proto_extract_kernel_matches_plain(dev, n_ways, k):
-    labels = np.repeat(np.arange(n_ways), k)
-    emb = torch.tensor(np.random.default_rng(k).normal(
-        size=(len(labels), 64)).astype(np.float32)).to(dev)
-    onehot = torch.tensor((labels[None] == np.arange(n_ways)[:, None]).astype(
+def _proto_case(seed, shots, V, dev, outliers=False, offset=0):
+    """Embeddings and labels for ``shots[j]`` shots of way j, shuffled;
+    with ``outliers``, two more shots labelled -1 and N (no way's).
+    ``offset`` floats in front of emb's storage (offset 1: not 16-byte
+    aligned, the kernel's 4-byte copies)."""
+    rng = np.random.default_rng(seed)
+    N = len(shots)
+    labels = np.repeat(np.arange(N), shots)
+    if outliers:
+        labels = np.concatenate([labels, [-1, N]])
+    labels = labels[rng.permutation(len(labels))]
+    flat = torch.tensor(rng.normal(size=offset + len(labels) * V).astype(
         np.float32)).to(dev)
-    before = proto_extract.launches
-    w, b = proto_extract(emb, onehot, k)
+    emb = flat[offset:].view(len(labels), V)
+    onehot = torch.tensor((labels[None] == np.arange(N)[:, None]).astype(
+        np.float32)).to(dev)
+    return emb, torch.tensor(labels).to(dev), onehot
+
+
+def _check_proto_entries(emb, labels, onehot, k):
+    """Both entries against the plain version: W bit for bit, b at rtol
+    1e-5, atol 1e-6; labels as int32 and as int64; one launch each."""
+    N = onehot.shape[0]
     wr, br = proto_extract_ref(emb, onehot, k)
-    torch.cuda.synchronize()
-    assert proto_extract.launches == before + 1
-    assert torch.equal(w, wr)
-    torch.testing.assert_close(b, br, rtol=1e-5, atol=1e-6)
+    calls = [("onehot", lambda: proto_extract(emb, onehot, k))] + [
+        (f"labels {dt}", lambda dt=dt: proto_extract_labels(
+            emb, labels.to(dt), N, k)) for dt in (torch.int32, torch.int64)]
+    for entry, call in calls:
+        before = (proto_extract.launches, proto_extract_labels.launches)
+        w, b = call()
+        torch.cuda.synchronize()
+        assert proto_extract.launches == before[0] + 1, entry
+        assert proto_extract_labels.launches == before[1] + (
+            entry != "onehot"), entry
+        assert torch.equal(w, wr), entry
+        torch.testing.assert_close(b, br, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("n_ways,k", [(5, 1), (5, 5), (37, 3)])
+@pytest.mark.parametrize("outliers", [False, True])
+def test_proto_extract_kernel_matches_plain(dev, n_ways, k, outliers):
+    """Both entries at V = 64: 5-way 1- and 5-shot (Nk = 5, 25) and 37
+    ways of 3 shots, with and without labels outside [0, N)."""
+    emb, labels, onehot = _proto_case(k, [k] * n_ways, 64, dev, outliers)
+    _check_proto_entries(emb, labels, onehot, k)
+
+
+@pytest.mark.parametrize("shots,V,offset", [
+    ([1 + (j % 4) for j in range(37)], 64, 0),  # 1-4 shots a way
+    ([1], 37, 0),                               # unaligned V, Nk = 1
+    ([2, 1, 3], 37, 0),
+    ([5] * 5, 64, 1),                           # emb not 16-byte aligned
+    ([5] * 5, 1024, 0), ([10] * 5, 1024, 0),   # 3 and 5 slab chunks
+    ([2, 1, 2], 20004, 0), ([2, 1, 2], 20001, 0),  # several tiles a CTA
+])
+@pytest.mark.parametrize("outliers", [False, True])
+def test_proto_extract_ragged_shapes_match_plain(dev, shots, V, offset,
+                                                 outliers):
+    emb, labels, onehot = _proto_case(V + len(shots), shots, V, dev,
+                                      outliers, offset)
+    _check_proto_entries(emb, labels, onehot, max(shots))
+
+
+def test_proto_extract_rejects_what_it_does_not_take(dev):
+    emb = torch.zeros(4, 8, device=dev)
+    bad = [lambda: proto_extract(emb, torch.zeros(2, 3, device=dev), 1),
+           lambda: proto_extract(emb.T, torch.zeros(2, 8, device=dev), 1),
+           lambda: proto_extract_labels(emb, torch.zeros(4, device=dev), 2, 1),
+           lambda: proto_extract_labels(emb, torch.zeros(
+               5, dtype=torch.int32, device=dev), 2, 1),
+           lambda: proto_extract_labels(emb, torch.zeros(
+               4, dtype=torch.int32), 2, 1),
+           lambda: proto_extract_labels(emb, torch.zeros(
+               4, dtype=torch.int32, device=dev), 0, 1)]
+    before = proto_extract.launches
+    for call in bad:
+        with pytest.raises(ValueError):
+            call()
+    assert proto_extract.launches == before
 
 
 def _packed(rng, K, N, dev):
@@ -1282,18 +1356,50 @@ def test_cross_pass_through_equals_lane_select_on_card(dev, paged,
 
 @pytest.mark.parametrize("V", [1024, 8192])
 @pytest.mark.parametrize("k", [1, 5])
-def test_proto_extract_wide_embeddings_match_plain(dev, V, k):
-    """proto_extract at the seamless (V = 1024) and internvl (V = 8192)
-    embedding widths, 5 ways: W bit for bit, b at rtol 1e-5, atol 1e-6."""
-    labels = np.repeat(np.arange(5), k)
-    emb = torch.tensor(np.random.default_rng(V + k).normal(
-        size=(len(labels), V)).astype(np.float32)).to(dev)
-    onehot = torch.tensor((labels[None] == np.arange(5)[:, None]).astype(
-        np.float32)).to(dev)
-    before = proto_extract.launches
-    w, b = proto_extract(emb, onehot, k)
-    wr, br = proto_extract_ref(emb, onehot, k)
-    torch.cuda.synchronize()
-    assert proto_extract.launches == before + 1
-    assert torch.equal(w, wr)
-    torch.testing.assert_close(b, br, rtol=1e-5, atol=1e-6)
+@pytest.mark.parametrize("outliers", [False, True])
+def test_proto_extract_wide_embeddings_match_plain(dev, V, k, outliers):
+    """proto_extract at the seamless (V = 1024, one CTA a way) and internvl
+    (V = 8192, a cluster of 8 CTAs a way) embedding widths, 5 ways, both
+    entries: W bit for bit, b at rtol 1e-5, atol 1e-6."""
+    emb, labels, onehot = _proto_case(V + k, [k] * 5, V, dev, outliers)
+    _check_proto_entries(emb, labels, onehot, k)
+
+
+def test_proto_extract_bias_repeats_bit_for_bit(dev):
+    """At V = 8192 (the cluster path) b's fixed-order reduction gives the
+    same bits in 50 calls of each entry, and W the same values."""
+    emb, labels, onehot = _proto_case(3, [5] * 5, 8192, dev, True)
+    for call in (lambda: proto_extract(emb, onehot, 5),
+                 lambda: proto_extract_labels(emb, labels, 5, 5)):
+        w0, b0 = call()
+        for _ in range(49):
+            w, b = call()
+            assert torch.equal(b.view(torch.int32), b0.view(torch.int32))
+            assert torch.equal(w, w0)
+
+
+def test_adapt_is_one_kernel_after_the_embedder(dev):
+    """``adapt`` on the card: with an identity embed_fn the profiler sees
+    exactly one device op, the proto_extract kernel (the label entry): no
+    one-hot, cast or copy kernel, for int32 and int64 labels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.protonet import adapt
+
+    emb, labels, _ = _proto_case(5, [5] * 5, 64, dev)
+    for lab in (labels, labels.to(torch.int32)):
+        adapt(lambda _, x: x, None, emb, lab, 5, 5)
+        torch.cuda.synchronize()
+        before = proto_extract_labels.launches
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                adapt(lambda _, x: x, None, emb, lab, 5, 5)
+            torch.cuda.synchronize()
+            time.sleep(0.05)  # lets the profiler collect the device records
+        on_dev = [(e.key, e.count) for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        assert len(on_dev) == 1 and on_dev[0][1] == 5, on_dev
+        assert "proto_extract" in on_dev[0][0], on_dev
+        assert proto_extract_labels.launches == before + 5

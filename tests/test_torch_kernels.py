@@ -12,6 +12,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ref as jref  # noqa: E402
@@ -20,7 +21,10 @@ from repro.kernels.tcn_block import tcn_block_pallas  # noqa: E402
 from repro.quant.log2 import pack_nibbles as j_pack  # noqa: E402
 from repro.quant.log2 import quantize_log2 as j_quant  # noqa: E402
 from repro_torch.kernels import _build, dispatch  # noqa: E402
-from repro_torch.kernels.proto_extract import proto_extract  # noqa: E402
+from repro_torch.kernels.proto_extract import (  # noqa: E402
+    proto_extract,
+    proto_extract_labels,
+)
 from repro_torch.kernels.ref import (  # noqa: E402
     expand_weight,
     proto_extract_ref,
@@ -136,6 +140,31 @@ def test_proto_extract_matches_pallas_interpret(shots):
     np.testing.assert_allclose(bt.numpy(), np.asarray(bj), rtol=RTOL, atol=ATOL)
     wr, br = jref.proto_extract_ref(jnp.asarray(emb), jnp.asarray(onehot), k)
     np.testing.assert_allclose(bt.numpy(), np.asarray(br), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("labels", [[0, 1, 2, 1, 0, 2, 2],
+                                    [2, -1, 0, 3, 1, 1, 7, 0]])
+def test_proto_extract_labels_matches_pallas_interpret(labels):
+    """The label entry against the Pallas kernel on jax.nn.one_hot of the
+    labels (a label outside [0, N) a zero column); on the CPU it equals the
+    one-hot entry on the comparison one-hot bit for bit."""
+    N, V, k = 3, 16, 3
+    labels = np.asarray(labels, np.int32)
+    emb = np.random.default_rng(len(labels)).normal(
+        size=(len(labels), V)).astype(np.float32)
+    onehot = jax.nn.one_hot(jnp.asarray(labels), N, dtype=jnp.float32).T
+    wj, bj = j_proto_extract(jnp.asarray(emb), onehot, k, bn=8,
+                             interpret=True)
+    for ldtype in (torch.int32, torch.int64):
+        wt, bt = proto_extract_labels(torch.tensor(emb),
+                                      torch.tensor(labels).to(ldtype), N, k)
+        np.testing.assert_allclose(wt.numpy(), np.asarray(wj), rtol=RTOL,
+                                   atol=ATOL)
+        np.testing.assert_allclose(bt.numpy(), np.asarray(bj), rtol=RTOL,
+                                   atol=ATOL)
+        wr, br = proto_extract(torch.tensor(emb),
+                               torch.tensor(np.asarray(onehot)), k)
+        assert torch.equal(wt, wr) and torch.equal(bt, br)
 
 
 def test_cpu_wrappers_count_no_launch():

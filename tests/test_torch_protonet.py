@@ -62,6 +62,64 @@ def test_adapt_kernel_path_equals_segment_sum_path():
     torch.testing.assert_close(b, bs, rtol=1e-5, atol=1e-6)
 
 
+def _episode_with_outliers(seed, n_ways, k, V=16):
+    """An episode with two more shots labelled -1 and ``n_ways``: labels
+    outside [0, n_ways), which count for no way."""
+    emb, labels = _episode(seed, n_ways, k, V)
+    extra = np.abs(np.random.default_rng(seed + 1).normal(
+        size=(2, V))).astype(np.float32)
+    emb = np.concatenate([emb[:1], extra[:1], emb[1:], extra[1:]])
+    labels = np.concatenate([labels[:1], [-1], labels[1:], [n_ways]])
+    return emb, labels.astype(np.int32)
+
+
+@pytest.mark.parametrize("n_ways,k", [(5, 1), (3, 4)])
+@pytest.mark.parametrize("j_backend", ["interpret", "ref"])
+@pytest.mark.parametrize("ldtype", [torch.int32, torch.int64])
+def test_adapt_out_of_range_labels_match_reference(n_ways, k, j_backend,
+                                                   ldtype):
+    """A label at -1 or n_ways counts for no way: the reference's one-hot
+    (jax.nn.one_hot) gives it a zero column, and the port's fp32 form
+    (proto_extract's label entry) drops it too, where it used to raise."""
+    emb, labels = _episode_with_outliers(n_ways * 10 + k, n_ways, k)
+    wj, bj = jp.adapt(lambda p, b: jnp.asarray(emb), None, None,
+                      jnp.asarray(labels), n_ways, k, backend=j_backend)
+    wt, bt = tp.adapt(lambda p, b: torch.tensor(emb), None, None,
+                      torch.tensor(labels).to(ldtype), n_ways, k)
+    _close(wt.numpy(), wj)
+    _close(bt.numpy(), bj)
+
+
+def test_adapt_log2_out_of_range_labels_match_reference():
+    emb, labels = _episode_with_outliers(3, 5, 5)
+    wj, bj = jp.adapt(lambda p, b: jnp.asarray(emb), None, None,
+                      jnp.asarray(labels), 5, 5, log2=True)
+    wt, bt = tp.adapt(lambda p, b: torch.tensor(emb), None, None,
+                      torch.tensor(labels), 5, 5, log2=True)
+    _close(wt.numpy(), wj)
+    _close(bt.numpy(), bj)
+
+
+def test_adapt_forms_count_the_same_shots():
+    """The fp32 and log2 forms drop the same shots: each gives what it
+    gives on the in-range shots alone (the fp32 form bit for bit: its shot
+    -order sums add nothing for a dropped shot), and the fp32 form's W is
+    the support sums the log2 form quantizes."""
+    emb, labels = _episode_with_outliers(4, 5, 5)
+    keep = torch.tensor((labels >= 0) & (labels < 5))
+    e, lab = torch.tensor(emb), torch.tensor(labels)
+    w, b = tp.adapt(lambda p, x: e, None, None, lab, 5, 5)
+    wk, bk = tp.adapt(lambda p, x: e[keep], None, None, lab[keep], 5, 5)
+    assert torch.equal(w, wk) and torch.equal(b, bk)
+    w2, b2 = tp.adapt(lambda p, x: e, None, None, lab, 5, 5, log2=True)
+    w2k, b2k = tp.adapt(lambda p, x: e[keep], None, None, lab[keep], 5, 5,
+                        log2=True)
+    _close(w2.numpy(), w2k.numpy())
+    _close(b2.numpy(), b2k.numpy())
+    torch.testing.assert_close(w, tp.support_sums(e, lab, 5), rtol=1e-5,
+                               atol=1e-6)
+
+
 def test_pn_logits_and_banked_match_reference():
     rng = np.random.default_rng(5)
     x = rng.normal(size=(6, 16)).astype(np.float32)
