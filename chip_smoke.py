@@ -192,7 +192,21 @@ non-zero):
            to 4 of 80 layers: the encdec phase's drive with 1,024 seeded
            patches in front of the text (decode positions count them),
            chunked prefill at open in the server, no speculation; adapt at
-           V=8192.
+           V=8192;
+  lm_train LM training (``phase_lm_train``): every family of the zoo at
+           smoke(), loss_fn's loss, metrics and gradients in fp32 on the
+           card against the CPU (rtol 1e-4, atol 1e-5 x scale, TF32 off)
+           and three Trainer steps with a finite loss; one step twice bit
+           for bit (olmo-1b, deepseek-v2-lite-16b, rwkv6-1.6b,
+           zamba2-1.2b, seamless-m4t-large-v2); olmo-1b's Trainer
+           (grad_accum=2, int8_ef) killed after 3 of 6 steps and resumed
+           bit for bit; the copy task (60 AdamW steps, the loss down by
+           0.2); then olmo-1b at full width and depth (1.28 B params,
+           remat on, AdamW) on lm_batch(step, 8, 512): step ms p50 of 10,
+           tokens/s, MFU and the hardware-FLOP share (launch/analytic's
+           counts over the bf16 peak of core/costmodel), launches and
+           idle share, peak memory, a finite loss at every step.  No port
+           kernel launched (asserted).
 
     python3 chip_smoke.py --compare-with DIR
 
@@ -227,11 +241,14 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# published peaks of one H100 SXM (NVIDIA data sheet): fp32 outside the
-# tensor cores, bf16 on the tensor cores (dense), and HBM3 bandwidth
-PEAK_FP32_FLOPS = 67e12
-PEAK_BF16_TC_FLOPS = 989e12
-PEAK_BYTES = 3.35e12
+# published peaks of one H100 SXM (NVIDIA data sheet, in
+# repro_torch/core/costmodel.py): fp32 outside the tensor cores, bf16 on
+# the tensor cores (dense), and HBM3 bandwidth
+from repro_torch.core.costmodel import (  # noqa: E402
+    H100_HBM_BW as PEAK_BYTES,
+    H100_PEAK_FLOPS_BF16 as PEAK_BF16_TC_FLOPS,
+    H100_PEAK_FLOPS_FP32 as PEAK_FP32_FLOPS,
+)
 PEAK_NAMES = {PEAK_FP32_FLOPS: "fp32 CUDA cores 67 TFLOP/s",
               PEAK_BF16_TC_FLOPS: "bf16 tensor cores 989 TFLOP/s"}
 
@@ -4616,6 +4633,276 @@ def phase_frontend(cfg, dev, smi: str, floors: dict, seed: int = 24,
 # the launch floor: device time of a kernel that does nothing
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase: lm_train
+# ---------------------------------------------------------------------------
+
+LMT_REPEAT = ("olmo-1b", "deepseek-v2-lite-16b", "rwkv6-1.6b", "zamba2-1.2b",
+              "seamless-m4t-large-v2")
+LMT_FAMILY_STEPS = 3
+LMT_RESUME_STEPS, LMT_RESUME_KILL = 6, 3
+LMT_COPY_STEPS, LMT_COPY_WINDOW = 60, 5
+LMT_TINY = dict(n_layers=2, d_model=32, d_ff=64, vocab_size=128, head_dim=16)
+LMT_BATCH, LMT_SEQ = 8, 512
+LMT_WARMUP, LMT_TIMED, LMT_PROFILED = 2, 10, 3
+
+
+def host_to(batch: dict, dev) -> dict:
+    import torch
+
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def lm_copy_data(vocab: int, batch: int, seq: int, dev, accum: int = 1):
+    """``data.lm_batch`` by step on ``dev``, with a leading micro-batch
+    axis of ``accum``."""
+    from repro_torch.data import lm_batch
+
+    def data(step):
+        b = lm_batch(step, batch, seq, vocab)
+        return host_to({k: v.reshape(accum, -1, seq) if accum > 1 else v
+                        for k, v in b.items()}, dev)
+
+    return data
+
+
+def phase_lm_train(dev, smi: str, seed: int = 26) -> dict:
+    """LM training on the card.  Every family at ``smoke()``: ``loss_fn``'s
+    loss, metrics and gradients in fp32 (TF32 off) against the same call
+    on the CPU (rtol 1e-4, atol 1e-5 x max(1, max|want|)), then three
+    ``Trainer`` steps at the config's own activation dtype with a finite
+    loss; a step twice bit for bit (olmo, deepseek, rwkv, zamba, seamless);
+    olmo-1b's ``Trainer`` (grad_accum=2, int8_ef) killed after 3 of 6 steps
+    and resumed, bit for bit; the copy task (``tests/test_trainer.py``'s
+    tiny config, 60 AdamW 3e-3 steps on lm_batch(step, 8, 64): the last 5
+    steps' mean loss at least 0.2 below the first 5's); then olmo-1b at
+    full width and depth, remat on, lm_batch(step, 8, 512): step ms p50 of
+    10 (CUDA events, after 2 warm-up steps), tokens/s, MFU and the
+    hardware-FLOP share against the bf16 tensor-core peak, launches and
+    idle share (3 profiled steps), peak memory, a finite loss at every
+    step and the same bits for the same state and batch."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import ASSIGNED, get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.core.costmodel import H100_PEAK_FLOPS_BF16, model_flops
+    from repro_torch.data import arch_batch
+    from repro_torch.launch import analytic
+    from repro_torch.models import build_bundle
+    from repro_torch.training import (
+        TrainConfig,
+        Trainer,
+        TrainState,
+        make_train_step,
+        value_and_grad,
+    )
+    from repro_torch.training.optim import adamw
+    from repro_torch.utils.trees import tree_leaves
+
+    out = {}
+    zero_launch_counts()
+    cpu = torch.device("cpu")
+
+    # ---- every family at smoke(): the card against the CPU, 3 steps ----
+    worst = 0.0
+    for base in ASSIGNED:
+        cfg = base.smoke().replace(act_dtype="float32")
+        params = build_bundle(cfg, cpu).init(
+            torch.Generator().manual_seed(seed))
+        batch = arch_batch(cfg)
+        want = value_and_grad(build_bundle(cfg, cpu).loss_fn, params,
+                              host_to(batch, cpu))
+        got = value_and_grad(build_bundle(cfg, dev).loss_fn,
+                             _to(params, dev), host_to(batch, dev))
+        pairs = [("loss", got[0], want[0])] \
+            + [(k, got[1][k], want[1][k]) for k in sorted(want[1])] \
+            + [(f"grad {i}", g, w) for i, (g, w) in enumerate(zip(
+                tree_leaves(got[2]), tree_leaves(want[2])))]
+        if set(got[1]) != set(want[1]):
+            raise AssertionError(f"lm_train {base.name}: metrics "
+                                 f"{sorted(got[1])} vs {sorted(want[1])}")
+        for what, g, w in pairs:
+            w = w.float()
+            err = float((g.float().cpu() - w).abs().max())
+            scale = max(1.0, float(w.abs().max()))
+            if not torch.allclose(g.float().cpu(), w, rtol=1e-4,
+                                  atol=1e-5 * scale):
+                raise AssertionError(f"lm_train {base.name} fp32 card vs "
+                                     f"CPU: {what} off by {err:.3g}")
+            worst = max(worst, err / scale)
+        cfg = base.smoke()
+        b = build_bundle(cfg, dev)
+        _, hist = Trainer(b.loss_fn, b.init(torch.Generator(
+            device=dev).manual_seed(seed)), TrainConfig(
+            steps=LMT_FAMILY_STEPS, log_every=1),
+            lambda s, cfg=cfg: host_to(arch_batch(cfg, seed=s), dev),
+            optimizer=adamw(1e-3)).run()
+        losses = [h["loss"] for h in hist]
+        if len(losses) != LMT_FAMILY_STEPS or not np.all(np.isfinite(losses)):
+            raise AssertionError(f"lm_train {base.name}: losses {losses}")
+        log(f"lm_train {base.name} smoke(): fp32 loss {float(want[0]):.6f}, "
+            f"{len(pairs) - 1} metrics and gradient leaves on the card within"
+            f" rtol 1e-4 / atol 1e-5 x scale of the CPU; {LMT_FAMILY_STEPS} "
+            f"Trainer steps ({cfg.act_dtype}) loss "
+            + ", ".join(f"{x:.4f}" for x in losses))
+    out["worst_card_vs_cpu"] = worst
+
+    # ---- a step twice, bit for bit ----
+    for name in LMT_REPEAT:
+        cfg = get_config(name).smoke()
+        b = build_bundle(cfg, dev)
+        params = b.init(torch.Generator(device=dev).manual_seed(seed))
+        opt = adamw(1e-3)
+        step = make_train_step(b.loss_fn, opt)
+        state = TrainState(params, opt[0](params), {}, {},
+                           torch.zeros((), dtype=torch.int32, device=dev))
+        batch = host_to(arch_batch(cfg, B=4, S=64, seed=1), dev)
+        if not tree_equal(list(step(state, batch)),
+                          list(step(state, batch))):
+            raise AssertionError(f"lm_train {name}: one step twice on the "
+                                 "same state and batch gave other bits")
+    log(f"lm_train: one step twice bit for bit (params, AdamW state, loss, "
+        f"metrics) for {', '.join(LMT_REPEAT)}")
+
+    # ---- kill and resume ----
+    cfg = get_config("olmo-1b").smoke()
+    b = build_bundle(cfg, dev)
+    params = b.init(torch.Generator(device=dev).manual_seed(seed))
+
+    def trainer(d):
+        return Trainer(b.loss_fn, params, TrainConfig(
+            steps=LMT_RESUME_STEPS, grad_accum=2, grad_compression="int8_ef",
+            ckpt_dir=str(d), ckpt_every=2, log_every=1),
+            lm_copy_data(cfg.vocab_size, 8, 64, dev, accum=2),
+            optimizer=adamw(3e-3))
+
+    ckpt = ROOT / "build" / "lm_train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    whole, hist = trainer(ckpt / "whole").run()
+    trainer(ckpt / "killed").run(steps=LMT_RESUME_KILL)
+    resumed = trainer(ckpt / "killed")
+    at = resumed.maybe_resume()
+    again, rest = resumed.run()
+    shutil.rmtree(ckpt, ignore_errors=True)
+    if at != LMT_RESUME_KILL or not tree_equal(whole, again) \
+            or rest != hist[LMT_RESUME_KILL:]:
+        raise AssertionError(f"lm_train: the killed Trainer resumed at {at}"
+                             " and differs from the whole run")
+    log(f"lm_train olmo-1b smoke() Trainer (grad_accum=2, int8_ef): "
+        f"{LMT_RESUME_STEPS} steps, loss {hist[0]['loss']:.4f} -> "
+        f"{hist[-1]['loss']:.4f}; killed after {LMT_RESUME_KILL}, resumed: "
+        "params, AdamW and error-feedback state and logged metrics bit for "
+        "bit equal")
+
+    # ---- the copy task ----
+    cfg = get_config("olmo-1b").smoke().replace(**LMT_TINY)
+    b = build_bundle(cfg, dev)
+    t0 = time.perf_counter()
+    _, hist = Trainer(b.loss_fn, b.init(torch.Generator(
+        device=dev).manual_seed(seed)), TrainConfig(
+        steps=LMT_COPY_STEPS, log_every=1),
+        lm_copy_data(cfg.vocab_size, 8, 64, dev),
+        optimizer=adamw(3e-3)).run()
+    first = float(np.mean([h["loss"] for h in hist[:LMT_COPY_WINDOW]]))
+    last = float(np.mean([h["loss"] for h in hist[-LMT_COPY_WINDOW:]]))
+    if not last < first - 0.2:
+        raise AssertionError(f"lm_train copy task: {first:.4f} -> {last:.4f}")
+    log(f"lm_train copy task (olmo-1b cut to {LMT_TINY}): "
+        f"{LMT_COPY_STEPS} AdamW 3e-3 steps in "
+        f"{time.perf_counter() - t0:.1f} s, mean loss of the first "
+        f"{LMT_COPY_WINDOW} {first:.4f} -> last {LMT_COPY_WINDOW} "
+        f"{last:.4f}")
+    out["copy"] = (first, last)
+
+    # ---- olmo-1b at full width and depth ----
+    # what earlier phases left allocated, so the step's own peak shows
+    base = torch.cuda.memory_allocated(dev)
+    cfg = get_config("olmo-1b")
+    b = build_bundle(cfg, dev)
+    params = b.init(torch.Generator(device=dev).manual_seed(seed))
+    opt = adamw(3e-4)
+    step = make_train_step(b.loss_fn, opt)
+    state = TrainState(params, opt[0](params), {}, {},
+                       torch.zeros((), dtype=torch.int32, device=dev))
+    del params
+    # every step's batch on the card before the first step: a pageable
+    # upload inside a step would wait there for the step before it
+    data = lm_copy_data(cfg.vocab_size, LMT_BATCH, LMT_SEQ, dev)
+    n_steps = LMT_WARMUP + LMT_TIMED + LMT_PROFILED + 1
+    batches = [data(i) for i in range(n_steps)]
+    counts = analytic.count_cell(cfg, b.param_defs, ShapeSpec(
+        "lm_train", "train", LMT_SEQ, LMT_BATCH))
+    tokens = LMT_BATCH * LMT_SEQ
+    losses = []
+
+    def run(i):
+        nonlocal state
+        state, m = step(state, batches[i])
+        losses.append(m["loss"])
+        return m
+
+    for i in range(LMT_WARMUP):
+        run(i)
+    sync(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = []
+    for i in range(LMT_WARMUP, LMT_WARMUP + LMT_TIMED):
+        batch = batches[i]
+        a = torch.cuda.Event(enable_timing=True)
+        z = torch.cuda.Event(enable_timing=True)
+        a.record()
+        state, m = step(state, batch)
+        z.record()
+        z.synchronize()
+        losses.append(m["loss"])
+        times.append(a.elapsed_time(z))
+    peak = torch.cuda.max_memory_allocated(dev)
+    # the same state and batch twice: the same bits
+    one, two = step(state, batches[0])[1], step(state, batches[0])[1]
+    if not tree_equal(one, two):
+        raise AssertionError("lm_train olmo-1b: a full-width step twice on "
+                             "the same state gave other bits")
+    del one, two
+    ticks = iter(range(LMT_WARMUP + LMT_TIMED, n_steps))
+    prof = profile_tick(lambda: run(next(ticks)), ticks=LMT_PROFILED,
+                        name="lm_train olmo-1b step")
+    losses = [float(x) for x in losses]
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"lm_train olmo-1b: losses {losses}")
+    ms = statistics.median(times)
+    mf = model_flops(counts.n_params_active, tokens)
+    out.update(step_ms=ms, tokens_per_s=tokens / ms * 1e3,
+               mfu=mf / (ms / 1e3 * H100_PEAK_FLOPS_BF16),
+               hw_share=counts.flops_global / (ms / 1e3
+                                               * H100_PEAK_FLOPS_BF16),
+               peak_gb=peak / 1e9, own_peak_gb=(peak - base) / 1e9,
+               profile=prof,
+               launches=lm_launch_counts())
+    log(f"timing lm_train olmo-1b (full: {cfg.n_layers} layers, d "
+        f"{cfg.d_model}, vocab {cfg.vocab_size}, {counts.n_params:,} params;"
+        f" remat {cfg.remat_policy}, {cfg.act_dtype}; lm_batch {LMT_BATCH} x "
+        f"{LMT_SEQ}; AdamW): step ms p50={ms:.2f} (of {LMT_TIMED}, CUDA "
+        f"events; min {min(times):.2f}, max {max(times):.2f}) "
+        f"tokens/s={out['tokens_per_s']:.0f} MFU={out['mfu']:.4f} "
+        f"(6 N tokens = {mf:.4g} FLOP at 989 TFLOP/s bf16) "
+        f"hardware_flop_share={out['hw_share']:.4f} (fwd x "
+        f"{analytic._train_mult(cfg)} = {counts.flops_global:.4g} FLOP) "
+        f"peak_memory_gb={out['peak_gb']:.2f} (the run's own "
+        f"{out['own_peak_gb']:.2f} over {base / 1e9:.2f} GB left by earlier "
+        f"phases) launches_per_step="
+        f"{prof['launches']:.0f} idle_share="
+        f"{1 - prof['busy_ms'] / prof['wall_ms']:.4f} (profiled; against "
+        f"the unprofiled p50 {1 - prof['busy_ms'] / ms:.4f}); loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}, finite at every step; the "
+        f"same state and batch twice give the same bits [{smi}]")
+    if any(out["launches"].values()):
+        raise AssertionError(f"lm_train launched a port kernel: "
+                             f"{out['launches']}")
+    return out
+
+
 EMPTY_KERNEL = r"""
 #include <cuda_runtime.h>
 __global__ void empty_kernel() {}
@@ -4774,6 +5061,7 @@ def main() -> int:
         n_layers=4), dev, smi, floors,
         depth_note="depth cut to 4 of its 80 layers")
     fewshot = [encdec["fewshot"], vlm["fewshot"]]
+    phase("lm_train", phase_lm_train, dev, smi)
     if args.compare_with is not None:
         phase("compare", phase_compare, dev, audio_cfg, cfg,
               args.compare_with.resolve())

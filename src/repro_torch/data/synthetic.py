@@ -13,6 +13,10 @@ for bit for the same seeds (Omniglot and GSC are not available offline):
 * ``lm_batch`` — deterministic, *seekable* synthetic token stream (mixture of
   hash noise and copy/repeat structure so an LM can reduce loss); stateless
   in the step index, which is what makes checkpoint-resume exact.
+* ``arch_batch`` (the port's own) — one seeded training batch of any LM
+  family at the shapes of the reference's per-architecture smoke test
+  (``tests/test_archs_smoke.py::_batch``), drawn with numpy instead of
+  ``jax.random``.
 """
 
 from __future__ import annotations
@@ -148,3 +152,23 @@ def lm_batch(step: int, batch: int, seq: int, vocab: int, seed: int = 0):
     half = (seq + 1) // 2
     toks[:, half:half * 2] = toks[:, :half]
     return {"tokens": toks[:, :-1].copy(), "labels": toks[:, 1:].copy()}
+
+
+def arch_batch(cfg, B: int = 2, S: int = 32, seed: int = 0) -> dict:
+    """A training batch for ``cfg``'s family: tokens and labels (B, S) of
+    ``np.random.default_rng(seed)``; the vlm's patches (B, P, D) take P of
+    the S positions, the audio family's frames are (B, S, D)."""
+    rng = np.random.default_rng(seed)
+
+    def tok(s):
+        return rng.integers(0, cfg.vocab_size, (B, s)).astype(np.int32)
+
+    if cfg.family == "vlm":
+        P = cfg.n_patches
+        return {"patches": rng.normal(size=(B, P, cfg.d_model))
+                .astype(np.float32), "tokens": tok(S - P),
+                "labels": tok(S - P)}
+    if cfg.family == "audio":
+        return {"frames": rng.normal(size=(B, S, cfg.d_model))
+                .astype(np.float32), "tokens": tok(S), "labels": tok(S)}
+    return {"tokens": tok(S), "labels": tok(S)}

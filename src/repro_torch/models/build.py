@@ -41,8 +41,16 @@ live on and the functions:
     write position-indexed leaves (K/V rows) in place and return new
     tensors for recurrent leaves, leaving the given ones as they were
     (the session layer masks those by value); ``pos`` is an int, or a
-    tensor 0-d or per lane (B,).  LM training (``loss_fn``) comes with a
-    later slice.
+    tensor 0-d or per lane (B,);
+  * LM training: ``loss_fn(params, batch) -> (loss, metrics)``, the
+    reference's: the batch's "tokens" and "labels" (B, S) (and the front
+    end's "patches" or "frames"), the layers under remat (checkpointed,
+    ``transformer.scan_layers``; RWKV's layers, zamba's Mamba layers and
+    each application of its shared block, each checkpointed as a unit),
+    ``chunked_cross_entropy`` over the labels (the vlm's patch positions
+    labelled -1), plus ``router_aux_coef * moe_aux`` on a MoE stack;
+    metrics {"acc", "tokens"} and the MoE stack's {"moe_aux",
+    "moe_dropped"}.  ``training/trainer.py`` differentiates it.
 """
 
 from __future__ import annotations
@@ -71,6 +79,8 @@ from repro_torch.models.ssm import (
 from repro_torch.models.transformer import (
     act_dtype,
     backbone,
+    checkpointed,
+    chunked_cross_entropy,
     embed_tokens,
     layer_fwd,
     layer_param_defs,
@@ -91,8 +101,9 @@ class Bundle:
     param_defs: dict
     device: torch.device
     embed_fn: Callable  # (params, batch, state=None, quantize=False) -> (B, V)
-    # (params, batch, state=None, quantize=False)
-    #   -> (loss, ({"acc": acc}, new_state))
+    # TCN: (params, batch, state=None, quantize=False)
+    #   -> (loss, ({"acc": acc}, new_state)); LM: (params, batch)
+    #   -> (loss, metrics) (module docstring)
     loss_fn: Callable
     prefill_fn: Callable  # TCN: (params, batch) -> (logits, {})
     decode_fn: Callable | None = None   # LM only (module docstring)
@@ -201,17 +212,12 @@ def _as_pos(pos, dev):
     return torch.as_tensor(pos, dtype=torch.int32).to(dev)
 
 
-def _lm_loss_fn(params, batch):
-    raise NotImplementedError(
-        "LM training (loss_fn, chunked_cross_entropy, the norms' "
-        "backward) comes with the LM training slice")
-
-
-def _lm_inputs(params, cfg, batch):
+def _lm_inputs(params, cfg, batch, remat: bool = False):
     """Embed a batch as the reference's ``_lm_inputs_train``: (x (B, S,
     D), labels (B, S), enc_h or None); labels default to the tokens, as
     the reference's ``embed_fn`` fills them.  vlm: the patches in front of
-    the text, their labels -1; audio: the encoder over the frames."""
+    the text, their labels -1; audio: the encoder over the frames (under
+    remat for the loss)."""
     x = embed_tokens(params, cfg, batch["tokens"])
     labels, enc_h = batch.get("labels", batch["tokens"]), None
     if cfg.family == "vlm":
@@ -221,7 +227,7 @@ def _lm_inputs(params, cfg, batch):
                          device=labels.device)
         labels = torch.cat([pad, labels], dim=1)
     elif cfg.family == "audio":
-        enc_h = run_encoder(params, cfg, batch["frames"])
+        enc_h = run_encoder(params, cfg, batch["frames"], remat=remat)
     return x, labels, enc_h
 
 
@@ -229,6 +235,16 @@ def build_lm_bundle(cfg: ArchConfig, device="cuda") -> Bundle:
     dev = require_device(device)
     defs = model_param_defs(cfg)
     adt = act_dtype(cfg)
+
+    def loss_fn(params, batch):
+        x, labels, enc_h = _lm_inputs(params, cfg, batch, remat=True)
+        h, metrics = backbone(params, cfg, x, 0, None, enc_h, remat=True)
+        loss, lm_m = chunked_cross_entropy(h, params["lm_head"], labels,
+                                           cfg.logit_chunk)
+        metrics = {**metrics, **lm_m}
+        if "moe_aux" in metrics:
+            loss = loss + cfg.router_aux_coef * metrics["moe_aux"]
+        return loss, metrics
 
     def prefill_fn(params, batch):
         x, _, enc_h = _lm_inputs(params, cfg, batch)
@@ -259,7 +275,7 @@ def build_lm_bundle(cfg: ArchConfig, device="cuda") -> Bundle:
 
     return Bundle(
         cfg=cfg, param_defs=defs, device=dev, embed_fn=embed_fn,
-        loss_fn=_lm_loss_fn, prefill_fn=prefill_fn, decode_fn=decode_fn,
+        loss_fn=loss_fn, prefill_fn=prefill_fn, decode_fn=decode_fn,
         step_fn=step_fn,
         empty_cache=lambda B, S: make_empty_cache(cfg, B, S, adt, dev),
         cache_specs=lambda B, S: make_empty_cache(cfg, B, S, adt, "meta"))
@@ -293,13 +309,21 @@ def rwkv_model_param_defs(cfg: ArchConfig) -> dict:
     }
 
 
-def _rwkv_forward(params, cfg, x, cache):
+def _rwkv_forward(params, cfg, x, cache, *, remat: bool = False):
     """Input norm, the layers in order, final norm.  Returns (hidden, a new
-    cache tree); ``cache`` is not written."""
+    cache tree); ``cache`` is not written.  ``remat`` (the loss's call):
+    each layer checkpointed, nothing but its inputs kept (the
+    reference's ``nothing_saveable``)."""
     x = layernorm(x, params["ln_in"]["w"], params["ln_in"]["b"])
+
+    def body(x, p, c):
+        return rwkv_layer(p, cfg, x, c)
+
+    if remat:
+        body = checkpointed(body)
     new = []
     for i, p in enumerate(_layer_list(params["layers"])):
-        x, c = rwkv_layer(p, cfg, x, {k: v[i] for k, v in cache.items()})
+        x, c = body(x, p, {k: v[i] for k, v in cache.items()})
         new.append(c)
     x = layernorm(x, params["final_norm"]["w"], params["final_norm"]["b"])
     return x, _stacked(new)
@@ -308,6 +332,14 @@ def _rwkv_forward(params, cfg, x, cache):
 def build_rwkv_bundle(cfg: ArchConfig, device="cuda") -> Bundle:
     dev = require_device(device)
     adt = act_dtype(cfg)
+
+    def loss_fn(params, batch):
+        x = embed_tokens(params, cfg, batch["tokens"])
+        h, _ = _rwkv_forward(params, cfg, x,
+                             rwkv_empty_cache(cfg, x.shape[0], x.dtype, dev),
+                             remat=True)
+        return chunked_cross_entropy(h, params["lm_head"], batch["labels"],
+                                     cfg.logit_chunk)
 
     def prefill_fn(params, batch):
         x = embed_tokens(params, cfg, batch["tokens"])
@@ -335,7 +367,7 @@ def build_rwkv_bundle(cfg: ArchConfig, device="cuda") -> Bundle:
 
     return Bundle(
         cfg=cfg, param_defs=rwkv_model_param_defs(cfg), device=dev,
-        embed_fn=embed_fn, loss_fn=_lm_loss_fn, prefill_fn=prefill_fn,
+        embed_fn=embed_fn, loss_fn=loss_fn, prefill_fn=prefill_fn,
         decode_fn=decode_fn, step_fn=step_fn,
         empty_cache=lambda B, S: rwkv_empty_cache(cfg, B, adt, dev),
         cache_specs=lambda B, S: rwkv_empty_cache(cfg, B, adt, "meta"))
@@ -360,12 +392,14 @@ def zamba_model_param_defs(cfg: ArchConfig) -> dict:
     }
 
 
-def _zamba_forward(params, cfg, x, cache, pos):
+def _zamba_forward(params, cfg, x, cache, pos, *, remat: bool = False):
     """The Mamba stack with the shared attention block before each segment
     of ``attn_every`` layers (one set of weights, a KV cache per
     application site).  ``cache`` None: no cache (zero Mamba states, no
     KV).  Returns (hidden, new cache): the Mamba leaves new tensors, the
-    KV leaves the given ones, written in place."""
+    KV leaves the given ones, written in place.  ``remat`` (the loss's
+    call): each Mamba layer and each application of the shared block
+    checkpointed as a unit, nothing but its inputs kept."""
     B, S, _ = x.shape
     ar = torch.arange(S, device=x.device)
     positions = ar + (pos.reshape(-1, 1) if isinstance(pos, torch.Tensor)
@@ -376,14 +410,21 @@ def _zamba_forward(params, cfg, x, cache, pos):
     layers = _layer_list(params["layers"])
     mcache = mamba_empty_cache(cfg, L, B, x.dtype, x.device) \
         if cache is None else cache["mamba"]
+    def abody(x, ac):
+        return layer_fwd(params["shared_attn"], cfg, x, rope, ac, pos)[0]
+
+    def mbody(x, p, c):
+        return mamba_layer(p, cfg, x, c)
+
+    if remat:
+        abody, mbody = checkpointed(abody), checkpointed(mbody)
     new = []
     for app in range(_zamba_n_apps(cfg)):
         ac = None if cache is None \
             else {k: v[app] for k, v in cache["attn"].items()}
-        x, _ = layer_fwd(params["shared_attn"], cfg, x, rope, ac, pos)
+        x = abody(x, ac)
         for i in range(app * E, min((app + 1) * E, L)):
-            x, c = mamba_layer(layers[i], cfg, x,
-                               {k: v[i] for k, v in mcache.items()})
+            x, c = mbody(x, layers[i], {k: v[i] for k, v in mcache.items()})
             new.append(c)
     x = apply_norm(cfg.norm_type, params, "final_norm", x)
     if cache is None:
@@ -394,6 +435,12 @@ def _zamba_forward(params, cfg, x, cache, pos):
 def build_zamba_bundle(cfg: ArchConfig, device="cuda") -> Bundle:
     dev = require_device(device)
     adt = act_dtype(cfg)
+
+    def loss_fn(params, batch):
+        x = embed_tokens(params, cfg, batch["tokens"])
+        h, _ = _zamba_forward(params, cfg, x, None, 0, remat=True)
+        return chunked_cross_entropy(h, params["lm_head"], batch["labels"],
+                                     cfg.logit_chunk)
 
     def prefill_fn(params, batch):
         x = embed_tokens(params, cfg, batch["tokens"])
@@ -420,7 +467,7 @@ def build_zamba_bundle(cfg: ArchConfig, device="cuda") -> Bundle:
 
     return Bundle(
         cfg=cfg, param_defs=zamba_model_param_defs(cfg), device=dev,
-        embed_fn=embed_fn, loss_fn=_lm_loss_fn, prefill_fn=prefill_fn,
+        embed_fn=embed_fn, loss_fn=loss_fn, prefill_fn=prefill_fn,
         decode_fn=decode_fn, step_fn=step_fn,
         empty_cache=lambda B, S: make_empty_cache(cfg, B, S, adt, dev),
         cache_specs=lambda B, S: make_empty_cache(cfg, B, S, adt, "meta"))

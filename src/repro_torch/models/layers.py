@@ -1,5 +1,5 @@
-"""Transformer building blocks of the LM family, forward only: norms,
-rotary embeddings, attention (dense and flash-chunked), MLPs.
+"""Transformer building blocks of the LM family: norms (with their
+backward), rotary embeddings, attention (dense and flash-chunked), MLPs.
 
 The port of ``repro/models/layers.py``.  Pure functions of (params, x) in
 the reference's layouts (activations (B, S, D), weights (D_in, D_out),
@@ -16,7 +16,10 @@ q/k/v (B, S, H, Dh)) and numerics:
 
 No library attention kernel (``scaled_dot_product_attention``, flash) is
 used: it is not the reference's formulation and rounds otherwise.  The
-reference's custom-VJP backward of the norms comes with LM training.
+norms carry the reference's custom-VJP backward as a
+``torch.autograd.Function`` (x-shaped tensors in the activation dtype,
+statistics and parameter gradients in fp32), entered only when autograd
+records the call; the forward is one helper for both paths.
 
 ``attention`` takes per-lane positions: ``q_offset`` and ``kv_len`` may be
 Python ints (the prefill call, which may route to the chunked path, as in
@@ -41,24 +44,107 @@ def _sq_mean(xf: torch.Tensor) -> torch.Tensor:
     return (xf * xf).sum(-1) / xf.shape[-1]
 
 
-def rmsnorm(x, w, eps: float = 1e-6):
+def _f32_sum(a, b=None, *, keep_last: bool = False) -> torch.Tensor:
+    """The reference's ``preferred_element_type=jnp.float32`` contraction:
+    the operands upcast (bf16 products are exact in fp32) and summed in
+    fp32, over the last axis (``keep_last`` False) or over every axis but
+    the last (a parameter gradient)."""
+    p = a.float() if b is None else a.float() * b.float()
+    return p.reshape(-1, p.shape[-1]).sum(0) if keep_last else p.sum(-1)
+
+
+def _rms_fwd(x, w, eps):
     inv = torch.rsqrt(_sq_mean(x.float()) + eps)
-    return x * inv[..., None].to(x.dtype) * w.to(x.dtype)
+    return x * inv[..., None].to(x.dtype) * w.to(x.dtype), inv
 
 
-def layernorm(x, w, b, eps: float = 1e-5):
-    """LayerNorm with fp32 statistics.  ``w``/``b`` None is the
-    non-parametric form (OLMo): the identity affine is skipped."""
+def _ln_fwd(x, w, b, eps):
     xf = x.float()
     mu = xf.sum(-1) / x.shape[-1]
     var = torch.clamp(_sq_mean(xf) - mu * mu, min=0.0)
     inv = torch.rsqrt(var + eps)
     xhat = (x - mu[..., None].to(x.dtype)) * inv[..., None].to(x.dtype)
-    if w is None and b is None:
-        return xhat
+    y = xhat
     if w is not None:
-        xhat = xhat * w.to(x.dtype)
-    return xhat + b.to(x.dtype) if b is not None else xhat
+        y = y * w.to(x.dtype)
+    if b is not None:
+        y = y + b.to(x.dtype)
+    return y, xhat, inv
+
+
+class _RMSNorm(torch.autograd.Function):
+    """rmsnorm with the reference's custom-VJP backward
+    (``repro/models/layers.py`` ``_rms_bwd``): dx in the activation dtype,
+    the statistics and dw accumulated in fp32."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        y, inv = _rms_fwd(x, w, eps)
+        ctx.save_for_backward(x, w, inv)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, inv = ctx.saved_tensors
+        wb, invb = w.to(x.dtype), inv[..., None].to(x.dtype)
+        dw = _f32_sum(dy * invb, x, keep_last=True).to(w.dtype) \
+            if ctx.needs_input_grad[1] else None
+        s = _f32_sum(dy * wb, x) / x.shape[-1]
+        coef = (inv ** 3 * s)[..., None].to(x.dtype)
+        return dy * wb * invb - x * coef, dw, None
+
+
+class _LayerNorm(torch.autograd.Function):
+    """layernorm with the reference's custom-VJP backward (``_ln_bwd``):
+    saves xhat (activation dtype) and the fp32 inverse deviation; dx in
+    the activation dtype, dw, db and the row means in fp32.  ``w``/``b``
+    None (the non-parametric form) get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, eps):
+        y, xhat, inv = _ln_fwd(x, w, b, eps)
+        ctx.save_for_backward(xhat, w, inv)
+        ctx.has_b = b is not None
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        xhat, w, inv = ctx.saved_tensors
+        dt, D = xhat.dtype, xhat.shape[-1]
+        dyw = dy if w is None else dy * w.to(dt)
+        dw = db = None
+        if w is not None and ctx.needs_input_grad[1]:
+            dw = _f32_sum(dy, xhat, keep_last=True).to(w.dtype)
+        if ctx.has_b and ctx.needs_input_grad[2]:
+            db = _f32_sum(dy, keep_last=True).to(
+                torch.float32 if w is None else w.dtype)
+        m1 = _f32_sum(dyw) / D
+        m2 = _f32_sum(dyw, xhat) / D
+        dx = (dyw - m1[..., None].to(dt) - xhat * m2[..., None].to(dt)) \
+            * inv[..., None].to(dt)
+        return dx, dw, db, None
+
+
+def _differentiated(*ts) -> bool:
+    """Whether autograd records this call: grad mode on and a tensor
+    input that requires grad (decode and serving never enter the
+    ``Function``)."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in ts)
+
+
+def rmsnorm(x, w, eps: float = 1e-6):
+    if _differentiated(x, w):
+        return _RMSNorm.apply(x, w, eps)
+    return _rms_fwd(x, w, eps)[0]
+
+
+def layernorm(x, w, b, eps: float = 1e-5):
+    """LayerNorm with fp32 statistics.  ``w``/``b`` None is the
+    non-parametric form (OLMo): the identity affine is skipped."""
+    if _differentiated(x, w, b):
+        return _LayerNorm.apply(x, w, b, eps)
+    return _ln_fwd(x, w, b, eps)[0]
 
 
 def layernorm_np(x, eps: float = 1e-5):

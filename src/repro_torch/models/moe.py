@@ -1,4 +1,4 @@
-"""Mixture-of-Experts FFN, forward only.
+"""Mixture-of-Experts FFN.
 
 The port of ``repro/models/moe.py``: token-choice top-k routing with a
 static capacity per expert, as scatter -> grouped expert SwiGLU -> gather,
@@ -21,7 +21,10 @@ The reference's numerics are kept step for step:
 
 The expert products are batched matmuls over the (E, B*C, D) buffer; an
 expert's zero-padded capacity rows are computed and discarded, as in the
-reference.
+reference.  The backward repeats bit for bit on CUDA: the dispatch's
+scatter differentiates to a gather, and the combine's gather writes each
+kept pair's gradient into its own buffer row (the dropped pairs, pointed
+at row 0, add exact zeros).
 """
 
 from __future__ import annotations
@@ -108,7 +111,10 @@ def moe_ffn(p: dict, cfg: ArchConfig, x):
     # dispatch: kept pairs to their unique (expert, row), dropped ones to
     # the trash row E*C
     dest = torch.where(keep, flat_e * C + pos, E * C)
-    x_rep = torch.repeat_interleave(x, K, dim=1)  # (B, S*K, D)
+    # (B, S*K, D): an expand, whose backward sums the K copies in a fixed
+    # order (PyTorch lists repeat_interleave's backward among its CUDA ops
+    # whose order is left to the hardware)
+    x_rep = x[:, :, None].expand(B, S, K, D).reshape(B, S * K, D)
     xbuf = torch.zeros((B, E * C + 1, D), dtype=x.dtype, device=x.device)
     xbuf.scatter_(1, dest[..., None].expand(B, S * K, D), x_rep)
     xbuf = xbuf[:, :E * C].reshape(B, E, C, D).transpose(0, 1) \

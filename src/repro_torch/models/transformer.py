@@ -1,5 +1,5 @@
 """Transformer assembly: the dense, MoE, vlm and encoder-decoder audio
-families, forward only.
+families, and the LM loss.
 
 The port of ``repro/models/transformer.py``: param declarations in the
 reference's names, shapes and init kinds, GQA and MLA (DeepSeek-V2
@@ -12,9 +12,17 @@ then ``moe_layers``; the encoder-decoder's ``enc_layers`` and decoder
 ``layers``), the non-causal encoder, embedding and the LM-head logits.
 
 The reference scans the stacked layer axis with ``jax.lax.scan``; here
-``scan_layers`` loops over it (nothing is differentiated, so there are no
-remat groups).  A cache is a dict of (L, B, S_max, Hkv, Dh) tensors that
-the layers update IN PLACE (a cached call returns the same dict): the
+``scan_layers`` loops over it.  Under ``remat=True`` (the loss's call
+only) each layer runs under ``torch.utils.checkpoint`` with the config's
+``remat_policy`` ("nothing": only the layer's input is kept; "dots":
+matrix products without a batch axis are kept too, the reference's
+``dots_with_no_batch_dims_saveable``), and with ``cfg.scan_layers`` the
+layers are grouped by ``_pick_group`` into checkpointed groups of
+checkpointed layers: the reference's two-level sqrt-depth schedule.
+``chunked_cross_entropy`` is the reference's memory-bounded loss.
+
+A cache is a dict of (L, B, S_max, Hkv, Dh) tensors that the layers
+update IN PLACE (a cached call returns the same dict): the
 session layer owns its cache grid, and copying it per step would move the
 whole cache.  MLA caches the compressed latent instead: {"c_kv" (L, B,
 S_max, r), "k_rope" (L, B, S_max, 1, dr)}.  The encoder-decoder's cache
@@ -41,7 +49,15 @@ Mamba's ``a_log`` and ``dt_bias``).
 
 from __future__ import annotations
 
+import functools
+
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (
@@ -57,7 +73,7 @@ from repro_torch.models.moe import moe_ffn, moe_param_defs
 from repro_torch.models.params import ParamDef, map_defs
 from repro_torch.models.rwkv import FP32_KEYS as RWKV_FP32
 from repro_torch.models.ssm import FP32_KEYS as SSM_FP32
-from repro_torch.utils.trees import tree_leaves, tree_map
+from repro_torch.utils.trees import tree_leaves, tree_map, tree_unflatten
 
 
 def act_dtype(cfg: ArchConfig) -> torch.dtype:
@@ -182,9 +198,12 @@ LAYER_STACKS = ("layers", "moe_layers", "enc_layers")
 
 
 def unstack_layers(stacked) -> list:
-    """Per-layer views of a stacked layer tree (no copy)."""
-    n = tree_leaves(stacked)[0].shape[0]
-    return [tree_map(lambda a, i=i: a[i], stacked) for i in range(n)]
+    """Per-layer views of a stacked layer tree (no copy).  ``unbind``: its
+    backward stacks the L layers' gradients in one op, where L ``a[i]``
+    selects would each scatter into a zero tensor of the whole stack."""
+    per_leaf = [a.unbind(0) for a in tree_leaves(stacked)]
+    return [tree_unflatten(stacked, [u[i] for u in per_leaf])
+            for i in range(len(per_leaf[0]))]
 
 
 # leaves every family's forward casts to fp32 at their use
@@ -282,12 +301,21 @@ def gqa_attn(p, cfg: ArchConfig, x, rope_cs, cache, pos, *, causal=True,
     if cfg.attn_kv_repeat and Hkv < H and S > 1:
         # the reference repeats KV to full heads for multi-token calls (a
         # sharding device there); decode (S == 1) attends grouped
-        k = torch.repeat_interleave(k, H // Hkv, dim=2)
-        v = torch.repeat_interleave(v, H // Hkv, dim=2)
+        k, v = repeat_heads(k, H // Hkv), repeat_heads(v, H // Hkv)
     out = attention(q, k, v, causal=causal and kv_x is None
                     and not cross_cached, q_offset=q_offset, kv_len=kv_len,
                     chunked_threshold=cfg.attn_chunk_threshold)
     return out.reshape(B, S, H * Dh) @ p["wo"].to(x.dtype)
+
+
+def repeat_heads(t, n: int):
+    """``torch.repeat_interleave(t, n, dim=2)`` as an expand: the same
+    values, and a backward that sums the n copies by a reduction of fixed
+    order (PyTorch lists ``repeat_interleave``'s backward, an index add,
+    among its CUDA ops whose order is left to the hardware)."""
+    B, S, Hkv, Dh = t.shape
+    return t[:, :, :, None].expand(B, S, Hkv, n, Dh).reshape(B, S, Hkv * n,
+                                                             Dh)
 
 
 def _lane_len(v):
@@ -386,38 +414,143 @@ def layer_fwd(p, cfg: ArchConfig, x, rope_cs, cache, pos, *,
     return x, metrics
 
 
+_DOTS = frozenset((torch.ops.aten.mm.default, torch.ops.aten.addmm.default))
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    """The reference's ``dots_with_no_batch_dims_saveable``: keep the
+    outputs of matrix products without a batch axis (``aten.mm``/``addmm``:
+    the weight products; the attention einsums and MoE expert products
+    are batched, ``bmm``, and recomputed as the reference does)."""
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def checkpointed(fn, policy: str = "nothing"):
+    """``fn`` under ``torch.utils.checkpoint`` (non-reentrant): only its
+    inputs (and, with ``policy="dots"``, its weight products) are kept for
+    the backward, the rest recomputed.  Nothing on the LM path draws
+    random numbers, so no RNG state is saved."""
+    if policy not in ("nothing", "dots"):
+        raise ValueError(f"unknown remat policy {policy!r}")
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_saveable)
+
+    def run(*args):
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False, **kw)
+
+    return run
+
+
+def _pick_group(L: int, max_group: int = 8) -> int:
+    """Largest divisor of L that is <= max_group (two-level remat
+    grouping)."""
+    for g in range(min(max_group, L), 0, -1):
+        if L % g == 0:
+            return g
+    return 1
+
+
 def scan_layers(layers, cfg: ArchConfig, x, rope_cs, cache, pos, *,
-                moe: bool = False, causal=True, enc_h=None):
+                moe: bool = False, causal=True, enc_h=None,
+                remat: bool = False):
     """One homogeneous layer stack: ``layers`` a stacked tree or a list of
     per-layer trees (``bake_lm_params``); ``cache`` the stack's cache tree
     of stacked (L, B, ...) leaves, or None.  Returns (x, metrics), each
-    metric the mean over the stack's layers (the reference's)."""
+    metric the mean over the stack's layers (the reference's).
+    ``remat`` (uncached calls only): each layer checkpointed with
+    ``cfg.remat_policy``, and with ``cfg.scan_layers`` the layers grouped
+    into checkpointed groups of ``_pick_group(L)`` (module docstring)."""
     if isinstance(layers, dict):
         layers = unstack_layers(layers)
-    per = []
-    for i, p in enumerate(layers):
-        c = None if cache is None else tree_map(lambda v, i=i: v[i], cache)
-        x, m = layer_fwd(p, cfg, x, rope_cs, c, pos, moe=moe, causal=causal,
+    if remat and cache is not None:
+        raise ValueError("remat is for uncached (training) calls")
+
+    def body(x, p, c=None):
+        return layer_fwd(p, cfg, x, rope_cs, c, pos, moe=moe, causal=causal,
                          enc_h=enc_h)
-        per.append(m)
+
+    if remat:
+        body = checkpointed(body, cfg.remat_policy)
+    L = len(layers)
+    G = _pick_group(L) if remat and cfg.scan_layers else 1
+    per = []
+    if G > 1:
+        def group(x, i0):
+            ms = []
+            for p in layers[i0:i0 + G]:
+                x, m = body(x, p)
+                ms.append(m)
+            return x, ms
+
+        group = checkpointed(group)
+        for i0 in range(0, L, G):
+            x, ms = group(x, i0)
+            per.extend(ms)
+    else:
+        for i, p in enumerate(layers):
+            c = None if cache is None \
+                else tree_map(lambda v, i=i: v[i], cache)
+            x, m = body(x, p, c)
+            per.append(m)
     metrics = {k: torch.stack([m[k] for m in per]).mean()
                for k in (per[0] if per else {})}
     return x, metrics
 
 
+class _EmbedRows(torch.autograd.Function):
+    """``F.embedding`` with a backward that sums each row's repeats in a
+    fixed order on both devices: on CUDA ``index_put_`` with accumulate
+    (it sorts the indices and walks a row's repeats in order), on the CPU
+    ``embedding_dense_backward`` (threads split the rows, each walks the
+    indices in order).  The library's own backwards each leave the order
+    to the hardware on one device (``F.embedding``'s on CUDA, an index's
+    on the CPU's threads), and a training step then gives other bits from
+    run to run."""
+
+    @staticmethod
+    def forward(ctx, weight, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = weight.shape[0]
+        return F.embedding(idx, weight)
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, = ctx.saved_tensors
+        if g.device.type == "cuda":
+            flat = g.reshape(-1, g.shape[-1])
+            dw = flat.new_zeros((ctx.rows, flat.shape[1])).index_put_(
+                (idx.reshape(-1),), flat, accumulate=True)
+        else:
+            dw = torch.ops.aten.embedding_dense_backward(g, idx, ctx.rows,
+                                                         -1, False)
+        return dw, None
+
+
 def embed_tokens(params, cfg: ArchConfig, tokens):
-    return params["embed"][tokens.long()].to(act_dtype(cfg))
+    """The embedding rows of ``tokens`` in the activation dtype; under
+    autograd through ``_EmbedRows`` (a backward that repeats bit for
+    bit)."""
+    w, idx = params["embed"], tokens.long()
+    if torch.is_grad_enabled() and w.requires_grad:
+        return _EmbedRows.apply(w, idx).to(act_dtype(cfg))
+    return F.embedding(idx, w).to(act_dtype(cfg))
 
 
 def _rope(cfg: ArchConfig, positions, dim: int):
     return rope_angles(positions, int(dim * cfg.rotary_frac), cfg.rope_theta)
 
 
-def backbone(params, cfg: ArchConfig, x, pos, cache, enc_h=None):
+def backbone(params, cfg: ArchConfig, x, pos, cache, enc_h=None, *,
+             remat: bool = False):
     """Run the decoder stacks (the dense ``layers``, then ``moe_layers``;
     the encoder-decoder's ``layers`` against ``cache["self"]`` and
     ``enc_h`` or the cached cross K/V) on embedded ``x`` (B, S, D) from
     position ``pos``; ``cache`` is the bundle's cache dict or None.
+    ``remat`` (the loss's call) checkpoints the layers (``scan_layers``).
     Returns (the final normed hidden states, metrics: the MoE stack's
     means)."""
     S = x.shape[1]
@@ -430,19 +563,58 @@ def backbone(params, cfg: ArchConfig, x, pos, cache, enc_h=None):
         if name in params:
             x, m = scan_layers(params[name], cfg, x, rope,
                                None if cache is None else cache[part], pos,
-                               moe=moe, enc_h=enc_h)
+                               moe=moe, enc_h=enc_h, remat=remat)
             metrics.update(m)
     return apply_norm(cfg.norm_type, params, "final_norm", x), metrics
 
 
-def run_encoder(params, cfg: ArchConfig, frames):
+def run_encoder(params, cfg: ArchConfig, frames, *, remat: bool = False):
     """The non-causal encoder over the frame embeddings (B, S_enc, D):
     rope over positions 0..S_enc-1, the ``enc_layers``, ``enc_norm``."""
     x = frames.to(act_dtype(cfg))
     rope = _rope(cfg, torch.arange(x.shape[1], device=x.device), cfg.dh)
     x, _ = scan_layers(params["enc_layers"], cfg, x, rope, None, 0,
-                       causal=False)
+                       causal=False, remat=remat)
     return apply_norm(cfg.norm_type, params, "enc_norm", x)
+
+
+def _ce_chunk(hc, w_head, yc):
+    """One sequence chunk of the loss: (sum of logsumexp - gold logit over
+    the labels >= 0, their count, the argmax hits among them), fp32.  The
+    gold logit's gather picks one column a row, so its backward writes
+    each gradient entry once (no accumulation order to vary)."""
+    logits = (hc @ w_head.to(hc.dtype)).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, torch.clamp(yc, min=0)[..., None])[..., 0]
+    mask = (yc >= 0).float()
+    hits = (torch.argmax(logits, dim=-1) == yc).float()
+    return ((lse - gold) * mask).sum(), mask.sum(), (hits * mask).sum()
+
+
+def chunked_cross_entropy(hidden, w_head, labels, chunk: int):
+    """The reference's memory-bounded LM loss: S padded to a multiple of
+    ``chunk`` with label -1, each (B, chunk) slice's fp32 logits computed
+    under its own checkpoint, so the (B, S, V) logits never exist at once
+    (a chunk's are recomputed in the backward).  Labels < 0 are masked.
+    Returns (mean loss over the unmasked labels, {"acc", "tokens"}); the
+    count is at least 1."""
+    B, S, _ = hidden.shape
+    chunk = min(chunk, S)
+    n = -(-S // chunk)
+    pad = n * chunk - S
+    h, y = hidden, labels.long()
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        y = F.pad(y, (0, pad), value=-1)
+    body = checkpointed(_ce_chunk)
+    loss_sum = cnt = correct = torch.zeros((), dtype=torch.float32,
+                                           device=hidden.device)
+    for c in range(n):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        l_c, n_c, r_c = body(h[:, sl], w_head, y[:, sl])
+        loss_sum, cnt, correct = loss_sum + l_c, cnt + n_c, correct + r_c
+    cnt = torch.clamp(cnt, min=1.0)
+    return loss_sum / cnt, {"acc": correct / cnt, "tokens": cnt}
 
 
 def logits_last(params, cfg: ArchConfig, hidden):

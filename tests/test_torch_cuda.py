@@ -41,6 +41,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.data import arch_batch  # noqa: E402
 from repro_torch.kernels.dilated_conv import dilated_conv  # noqa: E402
 from repro_torch.kernels.log2_matmul import (  # noqa: E402
     DECODE_MAX_M,
@@ -1403,3 +1404,174 @@ def test_adapt_is_one_kernel_after_the_embedder(dev):
         assert len(on_dev) == 1 and on_dev[0][1] == 5, on_dev
         assert "proto_extract" in on_dev[0][0], on_dev
         assert proto_extract_labels.launches == before + 5
+
+
+# ---------------------------------------------------------------------------
+# LM training: every family's loss and gradients on the card against the
+# CPU, a step twice, kill and resume, the launcher
+# ---------------------------------------------------------------------------
+
+LM_TRAIN_REPEAT = ["olmo-1b", "deepseek-v2-lite-16b", "rwkv6-1.6b",
+                   "zamba2-1.2b", "seamless-m4t-large-v2"]
+
+
+def _on(tree, device):
+    if isinstance(tree, dict):
+        return {k: _on(v, device) for k, v in tree.items()}
+    return (torch.from_numpy(tree) if isinstance(tree, np.ndarray)
+            else tree).to(device)
+
+
+def _lm_close(got, want, what):
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    scale = max(1.0, float(want.abs().max()))
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5 * scale,
+                               msg=lambda m: f"{what}: {m}")
+
+
+@pytest.mark.parametrize("name", ["rwkv6-1.6b", "deepseek-v2-lite-16b",
+                                  "moonshot-v1-16b-a3b", "olmo-1b",
+                                  "stablelm-1.6b", "command-r-35b",
+                                  "qwen2.5-32b", "zamba2-1.2b",
+                                  "internvl2-76b", "seamless-m4t-large-v2"])
+def test_lm_loss_and_grads_card_match_cpu(no_tf32, name):
+    """fp32 at ``smoke()``: loss, metrics and every gradient leaf of
+    ``loss_fn`` on the card against the same call on the CPU, at the LM
+    fp32 tolerance (rtol 1e-4, atol 1e-5 x max(1, max|want|))."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_bundle
+    from repro_torch.training import value_and_grad
+    from repro_torch.utils.trees import tree_leaves
+
+    cfg = get_config(name).smoke().replace(act_dtype="float32")
+    cpu = build_bundle(cfg, "cpu")
+    params = cpu.init(torch.Generator().manual_seed(0))
+    batch = arch_batch(cfg)
+    want = value_and_grad(cpu.loss_fn, params, _on(batch, "cpu"))
+    got = value_and_grad(build_bundle(cfg, no_tf32).loss_fn,
+                         _on(params, no_tf32), _on(batch, no_tf32))
+    _lm_close(got[0], want[0], "loss")
+    assert set(got[1]) == set(want[1])
+    for k in want[1]:
+        _lm_close(got[1][k], want[1][k], k)
+    for i, (g, w) in enumerate(zip(tree_leaves(got[2]),
+                                   tree_leaves(want[2]))):
+        assert g.device.type == "cuda"
+        _lm_close(g, w, f"grad leaf {i}")
+
+
+@pytest.mark.parametrize("name", LM_TRAIN_REPEAT)
+def test_lm_train_step_repeats_bit_for_bit(dev, name):
+    """The same state and batch give the same params, optimizer state,
+    loss and metrics, bit for bit (bf16 activations, the configs')."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_bundle
+    from repro_torch.training import TrainState, make_train_step
+    from repro_torch.training.optim import adamw
+    from repro_torch.utils.trees import tree_leaves
+
+    cfg = get_config(name).smoke()
+    b = build_bundle(cfg, dev)
+    params = b.init(torch.Generator(device=dev).manual_seed(0))
+    opt = adamw(1e-3)
+    step = make_train_step(b.loss_fn, opt)
+    state = TrainState(params, opt[0](params), {}, {},
+                       torch.zeros((), dtype=torch.int32, device=dev))
+    batch = _on(arch_batch(cfg, B=4, S=64, seed=1), dev)
+    one, two = step(state, batch), step(state, batch)
+    assert all(torch.equal(x, y) for x, y in zip(tree_leaves(one),
+                                                 tree_leaves(two)))
+
+
+def test_lm_trainer_resume_is_bit_exact_on_card(dev, tmp_path):
+    """olmo-1b ``smoke()``, grad_accum=2 and int8_ef, killed after 3 of 6
+    steps and resumed: the uninterrupted run's state bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import lm_batch
+    from repro_torch.models import build_bundle
+    from repro_torch.training import TrainConfig, Trainer
+    from repro_torch.training.optim import adamw
+    from repro_torch.utils.trees import tree_leaves
+
+    cfg = get_config("olmo-1b").smoke()
+    b = build_bundle(cfg, dev)
+    params = b.init(torch.Generator(device=dev).manual_seed(0))
+
+    def data(s):
+        return {k: torch.from_numpy(v.reshape(2, 4, -1)).to(dev) for k, v in
+                lm_batch(s, 8, 64, cfg.vocab_size).items()}
+
+    def trainer(d):
+        return Trainer(b.loss_fn, params, TrainConfig(
+            steps=6, grad_accum=2, grad_compression="int8_ef",
+            ckpt_dir=str(d), ckpt_every=2, log_every=1), data,
+            optimizer=adamw(3e-3))
+
+    whole, hist = trainer(tmp_path / "a").run()
+    trainer(tmp_path / "b").run(steps=3)
+    tr = trainer(tmp_path / "b")
+    assert tr.maybe_resume() == 3
+    again, rest = tr.run()
+    assert all(torch.equal(x, y) for x, y in zip(tree_leaves(whole),
+                                                 tree_leaves(again)))
+    assert rest == hist[3:]
+    assert all(np.isfinite(h["loss"]) for h in hist)
+
+
+def test_lm_backward_index_ops_repeat_on_card(dev):
+    """The backward of the LM path's index ops, at shapes with many
+    repeated indices, repeats bit for bit: the embedding gather
+    (``embed_tokens``: an accumulating index put on the card, where
+    ``F.embedding``'s own backward gave other bits from call to call),
+    the loss's gold-logit gather, the MoE FFN's dispatch and combine
+    (capacity dropping pairs) and the KV head repeat."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import moe_ffn, moe_param_defs
+    from repro_torch.models.params import init_params
+    from repro_torch.models.transformer import (
+        chunked_cross_entropy,
+        embed_tokens,
+        repeat_heads,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    emb = torch.randn(64, 256, device=dev, generator=g)  # 64 rows of 4,096
+    tokens = torch.randint(0, 64, (8, 512), device=dev, generator=g)
+    h = torch.randn(8, 512, 256, device=dev, generator=g,
+                    dtype=torch.bfloat16)
+    w_head = torch.randn(256, 64, device=dev, generator=g) / 16
+    kv = torch.randn(4, 128, 2, 64, device=dev, generator=g)
+    cfg = get_config("deepseek-v2-lite-16b").smoke().replace(
+        capacity_factor=0.5, n_experts=8, moe_topk=4)
+    mp = init_params(moe_param_defs(cfg), g, dev)
+    x = torch.randn(4, 256, cfg.d_model, device=dev, generator=g)
+
+    def grads():
+        leaves = [t.detach().requires_grad_(True) for t in
+                  (emb, h, w_head, kv, x, mp["router"], mp["wg"])]
+        e, hh, wh, k, xx, router, wg = leaves
+        loss, _ = chunked_cross_entropy(
+            hh + embed_tokens({"embed": e}, cfg, tokens), wh, tokens, 128)
+        y, aux = moe_ffn({**mp, "router": router, "wg": wg}, cfg, xx)
+        total = loss + (repeat_heads(k, 8) ** 2).sum() + (y ** 2).sum() \
+            + aux["moe_aux"]
+        assert float(aux["moe_dropped"]) > 0
+        return torch.autograd.grad(total, leaves)
+
+    first = grads()
+    for _ in range(3):
+        assert all(torch.equal(a, b) for a, b in zip(first, grads()))
+
+
+def test_launch_train_on_card(dev, capsys):
+    """``python -m repro_torch.launch.train --arch olmo-1b --smoke
+    --steps 3`` on its default device: the state lives on the card."""
+    from repro_torch.launch import train as launch_train
+    from repro_torch.utils.trees import tree_leaves
+
+    state, hist = launch_train.main(["--arch", "olmo-1b", "--smoke",
+                                     "--steps", "3"])
+    assert "params on cuda" in capsys.readouterr().out
+    assert all(t.device.type == "cuda" for t in tree_leaves(state))
+    assert int(state.step) == 3
+    assert all(np.isfinite(h["loss"]) for h in hist)

@@ -43,7 +43,7 @@ def test_port_files_found():
             "trees.py", "layers.py", "transformer.py", "params.py",
             "lm.py", "host.py", "shapes.py", "olmo_1b.py",
             "qwen25_32b.py", "moe.py", "spec.py", "rwkv.py",
-            "ssm.py"} <= names
+            "ssm.py", "analytic.py", "costmodel.py", "train.py"} <= names
 
 
 @pytest.mark.parametrize("module", ["repro_torch.kernels.dispatch",
@@ -71,7 +71,10 @@ def test_port_files_found():
                                     "repro_torch.serving.engine",
                                     "repro_torch.utils.host",
                                     "repro_torch.convert",
-                                    "repro_torch.configs.shapes"])
+                                    "repro_torch.configs.shapes",
+                                    "repro_torch.launch.analytic",
+                                    "repro_torch.launch.train",
+                                    "repro_torch.core.costmodel"])
 def test_module_imports_first(module):
     """Each of these imports in a fresh interpreter before anything else of
     the port (the configs import the models, which import dispatch; the
@@ -97,6 +100,7 @@ def test_default_device_entry_points_raise_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
     from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch_train
     from repro_torch.kernels import (
         make_dilated_conv_op,
         make_log2_matmul_op,
@@ -120,7 +124,8 @@ def test_default_device_entry_points_raise_without_a_card():
                   lambda: fsl_episode(None, EpisodicSampler(
                       GlyphClasses(5, size=8), range(5)), 0, 5, 1),
                   make_log2_matmul_op, make_dilated_conv_op,
-                  make_proto_extract_op):
+                  make_proto_extract_op,
+                  lambda: launch_train.main(["--smoke", "--steps", "1"])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             entry()
     assert build_tcn_bundle(cfg, "cpu").device.type == "cpu"

@@ -300,11 +300,13 @@ def test_init_params_seeded_on_device():
 
 @pytest.mark.parametrize("name", [
     "rwkv6-1.6b", "zamba2-1.2b", "internvl2-76b", "seamless-m4t-large-v2"])
-def test_other_families_refuse(name):
+def test_other_families_build_and_train(name):
     """Every config is data, field for field the reference's, and every
     family builds, none refused (the recurrent families, the vlm and the
     encoder-decoder audio family), with the reference's cache tree shapes
-    and dtypes at full size; LM training is still refused."""
+    and dtypes at full size; and every family trains: its ``smoke()``
+    bundle's ``loss_fn`` gives a finite loss with ``acc`` and ``tokens``
+    (held to the reference in ``tests/test_torch_lm_train*.py``)."""
     cfg = get_config(name)
     assert cfg == cfg.replace(**{k: v for k, v in vars(
         j_get_config(name)).items()})
@@ -317,8 +319,24 @@ def test_other_families_refuse(name):
              str(v.dtype).split(".")[-1]) for k, v in flat(got)] == \
         [(jax.tree_util.keystr(k), tuple(v.shape), str(v.dtype))
          for k, v in flat(want)]
-    with pytest.raises(NotImplementedError, match="LM training"):
-        b.loss_fn(None, None)
+    small = get_config(name).smoke()
+    sb = build_bundle(small, "cpu")
+    rng = np.random.default_rng(0)
+    S = 16
+    batch = {"tokens": rng.integers(0, small.vocab_size, (2, S)),
+             "labels": rng.integers(0, small.vocab_size, (2, S))}
+    if small.family == "vlm":
+        batch["patches"] = rng.normal(size=(2, small.n_patches,
+                                            small.d_model))
+    if small.family == "audio":
+        batch["frames"] = rng.normal(size=(2, S, small.d_model))
+    with torch.no_grad():
+        loss, metrics = sb.loss_fn(
+            sb.init(torch.Generator().manual_seed(0)),
+            {k: torch.from_numpy(v) for k, v in batch.items()})
+    assert torch.isfinite(loss) and loss.dtype == torch.float32
+    assert 0.0 <= float(metrics["acc"]) <= 1.0
+    assert float(metrics["tokens"]) == 2 * S
 
 
 @pytest.mark.parametrize("name", ["deepseek-v2-lite-16b",
