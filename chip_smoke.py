@@ -79,6 +79,18 @@ non-zero):
            784-sample tick: 63-frame windows) and its tick; then
            TCNStreamServer, 64 streams x 252 frames in 63-frame pushes, bit
            for bit equal to the bare service and to its push_chunk shim;
+  examples the three example twins as a user runs them (each main() on
+           the card, its printout on earlier lines): quickstart_torch
+           (get_meta_trained_tcn at 80 episodes, 5-way 3-shot FSL on
+           unseen classes above chance, one streamed query against the
+           full forward, rtol 2e-4, atol 2e-5 x max(1, max|full|)),
+           serve_multitenant_torch (chameleon-tcn-kws at full width, 4
+           slots, 4 tenants, 12 sessions: its predictions equal to the
+           unfused executor's, alice's resumed result bit for bit equal to
+           a never-evicted service, one tcn_chunk launch per tick) and
+           serve_stream_torch (4 ticks of 2 KWS streams, one tcn_chunk
+           launch each; LMServer's tokens equal to each request alone on a
+           fresh server);
   ops      log2_matmul (both paths: tensor-core tiles, and the decode path
            for M <= 4) and dilated_conv (repro_torch.kernels.ops) against
            their plain versions at every listed shape (TF32 off), the
@@ -1966,6 +1978,101 @@ def phase_kws_server(cfg, dev, seed: int = 12, n_streams: int = N_SLOTS,
         f"in {KWS_WINDOW}-frame pushes, {chunk} ticks (one tcn_chunk launch "
         "each), bit for bit equal to the bare service and to push_chunk")
     return {"launches": chunk + strip}
+
+
+# ---------------------------------------------------------------------------
+# phase: examples (the three TCN example twins, as a user runs them)
+# ---------------------------------------------------------------------------
+
+EXAMPLES = ("quickstart_torch", "serve_multitenant_torch",
+            "serve_stream_torch")
+
+
+def load_example(name: str):
+    """examples/<name>.py as a module (the folder is not a package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_examples(dev) -> dict:
+    """Each twin's ``main`` on the card (its printout), then: the
+    quickstart's streamed embedding against the full forward (rtol 2e-4,
+    atol 2e-5 x max(1, max|full|)) and its FSL accuracy above chance;
+    serve_multitenant's predictions equal to the unfused executor's,
+    alice's resumed result bit for bit equal to a never-evicted control,
+    and one tcn_chunk launch per tick in both serving examples; the
+    LMServer's tokens equal to a synchronous control (each request alone
+    on a fresh server)."""
+    import numpy as np
+    from repro_torch.kernels.tcn_block import tcn_block, tcn_chunk
+
+    qs, mt, ss = (load_example(n) for n in EXAMPLES)
+    argv = ["--device", dev.type]
+    zero_launch_counts()
+    q = qs.main(argv)
+    full, got = q["full_emb"], q["stream_emb"]
+    err = allclose("quickstart stream", got, full, 2e-4,
+                   2e-5 * max(1.0, float(full.abs().max())))
+    if not q["acc"] > 0.20:
+        raise AssertionError(f"quickstart: FSL accuracy {q['acc']} at or "
+                             "below chance (0.20)")
+    if any(lm_launch_counts().values()):
+        raise AssertionError(f"quickstart launched {lm_launch_counts()}")
+
+    zero_launch_counts()
+    m = mt.main(argv)
+    chunk, strip = tcn_chunk.launches, tcn_block.launches
+    ticks = sum(m["dispatches"].values())
+    if chunk != ticks or not strip:
+        raise AssertionError(f"serve_multitenant: {chunk} tcn_chunk "
+                             f"launches in {ticks} ticks, {strip} strip "
+                             "launches")
+    if not m["resume_exact"]:
+        raise AssertionError("serve_multitenant: alice's resumed result "
+                             "differs from a never-evicted service")
+    unfused = mt.run(dev, fused=False)
+    steps = ("alice", "bob", "bob_new", "alice_resumed")
+    preds = [(m[k]["pred"], unfused[k]["pred"]) for k in steps]
+    if any(a != b for a, b in preds):
+        raise AssertionError(f"serve_multitenant: fused and unfused "
+                             f"predictions differ: {preds}")
+    ways = dict(m["n_ways"], alice_resumed=m["n_ways"]["alice"])
+    if not all(np.isfinite(m[k]["tenant_logits"][..., :ways[k]]).all()
+               for k in steps):
+        raise AssertionError("serve_multitenant: non-finite logits of an "
+                             "enrolled way")
+    launches = chunk + strip
+
+    zero_launch_counts()
+    s = ss.main(argv)
+    if tcn_chunk.launches != s["dispatches"] or s["dispatches"] != 4:
+        raise AssertionError(f"serve_stream: {tcn_chunk.launches} tcn_chunk "
+                             f"launches in {s['dispatches']} ticks (want 4)")
+    launches += tcn_chunk.launches + tcn_block.launches
+    if not np.isfinite(s["logits"]).all():
+        raise AssertionError("serve_stream: non-finite logits")
+    for name, steps_ in (("r1", ss.LM_STEPS), ("r2", ss.LM_STEPS),
+                         ("r3", 1)):
+        ctl = ss.lm_server(dev)
+        sid = ctl.open_session(np.array(ss.LM_PROMPTS[name], np.int32))
+        for _ in range(steps_):
+            ctl.step()
+        if list(ctl.outputs[sid]) != s["lm"][name]:
+            raise AssertionError(f"serve_stream: LMServer request {name} "
+                                 f"{s['lm'][name]} differs from a "
+                                 f"synchronous control {ctl.outputs[sid]}")
+    log(f"examples: quickstart stream err {err:.3g}, FSL acc {q['acc']:.2f};"
+        f" serve_multitenant {ticks} ticks = {chunk} tcn_chunk launches, "
+        f"{strip} strip launches, predictions {[p for p, _ in preds]} "
+        "equal to the unfused executor's, alice's resume bit-exact; "
+        f"serve_stream {s['dispatches']} ticks, LM tokens equal to "
+        "synchronous controls")
+    return {"launches": launches}
 
 
 # ---------------------------------------------------------------------------
@@ -5028,6 +5135,7 @@ def main() -> int:
                 stream_len=4 * KWS_WINDOW, shot_len=KWS_WINDOW,
                 long_tick=False)
     kws_server = phase("kws server", phase_kws_server, kws_cfg, dev)
+    examples = phase("examples", phase_examples, dev)
     op_errs = phase("ops", phase_ops, dev, audio_cfg, cfg)
     mm_time, conv_time = phase("ops timings", phase_ops_timings, dev,
                                audio_cfg)
@@ -5073,7 +5181,8 @@ def main() -> int:
          "replaces": "src/repro/kernels/tcn_block.py:166",
          "launches": serve["launches"] + sum(c[1] for c in fsl.values())
          + cl["launches"] + plane["launches"] + kws["launches"]
-         + kws_server["launches"] + audio["launches"]
+         + kws_server["launches"] + examples["launches"]
+         + audio["launches"]
          + train["fsl_launches"][0] + train["serve_launches"],
          "max_abs_err": max(errs["tcn_block"], audio_errs["tcn_block"],
                             kws_errs["tcn_block"]),

@@ -56,7 +56,12 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build, dispatch
-from repro_torch.kernels.ref import tcn_block_fused, tcn_chunk_plain
+# expand_weight is re-exported: the reference defines it in this module
+from repro_torch.kernels.ref import (  # noqa: F401
+    expand_weight,
+    tcn_block_fused,
+    tcn_chunk_plain,
+)
 
 _P, _I, _F = _build.P, _build.I, _build.F
 _SIGNATURES = {

@@ -60,7 +60,7 @@ from typing import Callable
 
 import torch
 
-from repro_torch.configs.shapes import ENCDEC_ENC_LEN
+from repro_torch.configs.shapes import ENCDEC_ENC_LEN, SHAPES
 from repro_torch.kernels.dispatch import require_device
 from repro_torch.models import tcn as tcn_mod
 from repro_torch.models.config import ArchConfig
@@ -120,6 +120,9 @@ class Bundle:
                                        self.device)
         return init_params(self.param_defs, generator, self.device)
 
+    def input_specs(self, shape_name: str) -> dict:
+        return input_specs(self.cfg, shape_name)
+
 
 def cross_entropy(logits, labels):
     """(mean of logsumexp - gold logit, accuracy), as the reference's
@@ -129,6 +132,51 @@ def cross_entropy(logits, labels):
     gold = torch.gather(logits, 1, labels[:, None])[:, 0]
     acc = torch.mean((torch.argmax(logits, -1) == labels).to(torch.float32))
     return torch.mean(lse - gold), acc
+
+
+# ---------------------------------------------------------------------------
+# Input specs per (arch family, shape): tensors on the meta device, the
+# reference's ShapeDtypeStruct stand-ins (shapes and dtypes, no storage)
+# ---------------------------------------------------------------------------
+
+def _spec(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ArchConfig, shape_name: str) -> dict:
+    s = SHAPES[shape_name]
+    B, S = s.global_batch, s.seq_len
+    i32 = torch.int32
+    adt = act_dtype(cfg)
+    D = cfg.d_model
+    if cfg.family == "tcn":
+        if s.kind == "train":
+            return {"x": _spec((B, S, cfg.tcn_in_channels), torch.float32),
+                    "labels": _spec((B,), i32)}
+        return {"x": _spec((B, 1, cfg.tcn_in_channels), torch.float32)}
+    if s.kind == "train":
+        if cfg.family == "vlm":
+            P = cfg.n_patches
+            return {"patches": _spec((B, P, D), adt),
+                    "tokens": _spec((B, S - P), i32),
+                    "labels": _spec((B, S - P), i32)}
+        if cfg.family == "audio":
+            half = S // 2
+            return {"frames": _spec((B, half, D), adt),
+                    "tokens": _spec((B, half), i32),
+                    "labels": _spec((B, half), i32)}
+        return {"tokens": _spec((B, S), i32), "labels": _spec((B, S), i32)}
+    if s.kind == "prefill":
+        if cfg.family == "vlm":
+            P = cfg.n_patches
+            return {"patches": _spec((B, P, D), adt),
+                    "tokens": _spec((B, S - P), i32)}
+        if cfg.family == "audio":
+            return {"frames": _spec((B, ENCDEC_ENC_LEN, D), adt),
+                    "tokens": _spec((B, S), i32)}
+        return {"tokens": _spec((B, S), i32)}
+    # decode: one new token against a seq_len cache
+    return {"tokens": _spec((B, 1), i32), "pos": _spec((), i32)}
 
 
 def build_tcn_bundle(cfg: ArchConfig, device="cuda") -> Bundle:
@@ -202,6 +250,13 @@ def make_empty_cache(cfg: ArchConfig, B: int, S: int, dtype=torch.bfloat16,
     if n_moe:
         out["moe"] = per(cfg, n_moe, B, S, dtype, device)
     return out
+
+
+def make_cache_specs(cfg: ArchConfig, B: int, S: int,
+                     dtype=torch.bfloat16) -> dict:
+    """``make_empty_cache``'s tree on the meta device: shapes and dtypes,
+    nothing allocated."""
+    return make_empty_cache(cfg, B, S, dtype, "meta")
 
 
 def _as_pos(pos, dev):
@@ -278,7 +333,7 @@ def build_lm_bundle(cfg: ArchConfig, device="cuda") -> Bundle:
         loss_fn=loss_fn, prefill_fn=prefill_fn, decode_fn=decode_fn,
         step_fn=step_fn,
         empty_cache=lambda B, S: make_empty_cache(cfg, B, S, adt, dev),
-        cache_specs=lambda B, S: make_empty_cache(cfg, B, S, adt, "meta"))
+        cache_specs=lambda B, S: make_cache_specs(cfg, B, S, adt))
 
 
 # ---------------------------------------------------------------------------
@@ -370,7 +425,7 @@ def build_rwkv_bundle(cfg: ArchConfig, device="cuda") -> Bundle:
         embed_fn=embed_fn, loss_fn=loss_fn, prefill_fn=prefill_fn,
         decode_fn=decode_fn, step_fn=step_fn,
         empty_cache=lambda B, S: rwkv_empty_cache(cfg, B, adt, dev),
-        cache_specs=lambda B, S: rwkv_empty_cache(cfg, B, adt, "meta"))
+        cache_specs=lambda B, S: make_cache_specs(cfg, B, S, adt))
 
 
 # ---------------------------------------------------------------------------
@@ -470,7 +525,7 @@ def build_zamba_bundle(cfg: ArchConfig, device="cuda") -> Bundle:
         embed_fn=embed_fn, loss_fn=loss_fn, prefill_fn=prefill_fn,
         decode_fn=decode_fn, step_fn=step_fn,
         empty_cache=lambda B, S: make_empty_cache(cfg, B, S, adt, dev),
-        cache_specs=lambda B, S: make_empty_cache(cfg, B, S, adt, "meta"))
+        cache_specs=lambda B, S: make_cache_specs(cfg, B, S, adt))
 
 
 BUILDERS = {

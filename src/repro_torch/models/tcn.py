@@ -7,8 +7,8 @@ the QAT fake-quant (log2 weights through the straight-through estimator,
 u4 activations at the fixed ``act_scale``), BN folding and the
 session-open bake behind the fused kernel path, and the fused batch
 forward.  Training runs through autograd over ``tcn_forward``; its convs
-are ``kernels/ref.dilated_conv_ref`` (tap-shifted matmuls, no cuDNN), as
-the eval forward's are.
+are ``causal_conv1d`` (``kernels/ref.dilated_conv_ref``: tap-shifted
+matmuls, no cuDNN), as the eval forward's are.
 
 Params are nested dicts of tensors in the reference's layout: conv weights
 (K, Cin, Cout), activations (B, T, C).
@@ -21,7 +21,7 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.kernels.dispatch import require_device
-from repro_torch.kernels.ref import dilated_conv_ref as causal_conv1d
+from repro_torch.kernels.ref import dilated_conv_ref
 from repro_torch.models.config import ArchConfig
 from repro_torch.quant.log2 import (
     compute_scale,
@@ -108,6 +108,12 @@ def tcn_empty_state(cfg: ArchConfig, device="cuda") -> dict:
                       "bn2_mean": torch.zeros(c, device=dev),
                       "bn2_var": torch.ones(c, device=dev)}
             for i, c in enumerate(cfg.tcn_channels)}
+
+
+def causal_conv1d(x, w, b, dilation: int):
+    """x: (B, T, Cin); w: (K, Cin, Cout).  Left-padded causal dilated conv
+    (``kernels/ref.dilated_conv_ref``), weights and bias in x's dtype."""
+    return dilated_conv_ref(x, w.to(x.dtype), b.to(x.dtype), dilation)
 
 
 def _bn(x, scale, bias, mean, var):

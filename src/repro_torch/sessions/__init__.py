@@ -18,7 +18,14 @@ both tuples equal the reference's (tests/test_torch_protocol.py).
 from typing import Any, Protocol, runtime_checkable
 
 from repro_torch.sessions.bankpool import PagedBankPool, paged_bank_fc
-from repro_torch.sessions.lm import LMSessionService, pow2_chunks
+from repro_torch.sessions.lm import (
+    LMSessionService,
+    make_decode_scan,
+    make_decode_scan_paged,
+    make_prefill_column,
+    make_prefill_paged,
+    pow2_chunks,
+)
 from repro_torch.sessions.paging import (
     NULL_BLOCK,
     BlockPool,
@@ -44,17 +51,26 @@ from repro_torch.sessions.spec import (
 )
 from repro_torch.sessions.state import (
     decode_parked,
+    gather_column,
     grid_init,
     grid_scan,
     grid_step,
+    leaf_axes,
     lengths_to_valid,
     make_grid_fused,
+    make_pools,
+    pack_blocks,
+    pack_column,
     pack_slot,
     parked_bytes,
     reset_slot,
     slot_park_bytes,
     slot_state_bytes,
+    split_blocks,
+    unpack_blocks,
+    unpack_column,
     unpack_slot,
+    zero_from_column,
 )
 from repro_torch.sessions.tenancy import (
     TenantBank,
@@ -64,6 +80,8 @@ from repro_torch.sessions.tenancy import (
     bank_init,
     bank_pack_tenant,
     bank_row_bytes,
+    bank_set_store,
+    bank_store,
     bank_unpack_tenant,
     bank_update_class,
 )
@@ -121,14 +139,18 @@ __all__ = [
     "SessionService", "STATS_SCHEMA", "METRICS_SCHEMA",
     "PagedBankPool", "paged_bank_fc", "NULL_BLOCK", "BlockPool",
     "PoolExhausted", "PrefixCache", "prefix_keys", "LMSessionService",
-    "pow2_chunks", "SpeculativeDecoder", "make_verify_chunk",
+    "make_decode_scan", "make_decode_scan_paged", "make_prefill_column",
+    "make_prefill_paged", "pow2_chunks", "SpeculativeDecoder", "make_verify_chunk",
     "make_verify_chunk_paged", "make_verify_scan", "make_verify_scan_paged",
     "ngram_drafter", "RehearsalBuffer", "AdmissionError", "CapacityError",
     "SlotScheduler", "NO_TENANT", "SessionRecord", "SlotGridService",
-    "StreamSessionService", "decode_parked", "grid_init", "grid_scan",
-    "grid_step", "lengths_to_valid", "make_grid_fused", "pack_slot",
-    "parked_bytes", "reset_slot", "slot_park_bytes", "slot_state_bytes",
-    "unpack_slot", "TenantBank", "bank_add_class", "bank_clear_tenant",
-    "bank_fc", "bank_init", "bank_pack_tenant", "bank_row_bytes",
-    "bank_unpack_tenant", "bank_update_class",
+    "StreamSessionService", "decode_parked", "gather_column", "grid_init",
+    "grid_scan", "grid_step", "leaf_axes", "lengths_to_valid",
+    "make_grid_fused", "make_pools", "pack_blocks", "pack_column",
+    "pack_slot", "parked_bytes", "reset_slot", "slot_park_bytes",
+    "slot_state_bytes", "split_blocks", "unpack_blocks", "unpack_column",
+    "unpack_slot", "zero_from_column", "TenantBank", "bank_add_class",
+    "bank_clear_tenant", "bank_fc", "bank_init", "bank_pack_tenant",
+    "bank_row_bytes", "bank_set_store", "bank_store", "bank_unpack_tenant",
+    "bank_update_class",
 ]

@@ -34,6 +34,26 @@ def bank_init(max_tenants: int, max_ways: int, dim: int,
         n_ways=torch.zeros((max_tenants,), dtype=torch.int32, device=device))
 
 
+def bank_store(bank: TenantBank, tenant: int) -> PrototypeStore:
+    """View one tenant's row as a standalone PrototypeStore (views of the
+    bank's tensors: no copy)."""
+    return PrototypeStore(s_sums=bank.s_sums[tenant],
+                          counts=bank.counts[tenant],
+                          n_ways=bank.n_ways[tenant])
+
+
+def bank_set_store(bank: TenantBank, tenant: int,
+                   store: PrototypeStore) -> TenantBank:
+    """A new bank with ``tenant``'s row replaced by ``store``; ``bank``
+    is left as it was."""
+    s_sums, counts, n_ways = (bank.s_sums.clone(), bank.counts.clone(),
+                              bank.n_ways.clone())
+    s_sums[tenant] = store.s_sums
+    counts[tenant] = store.counts
+    n_ways[tenant] = store.n_ways
+    return TenantBank(s_sums, counts, n_ways)
+
+
 def bank_add_class(bank: TenantBank, tenant: int,
                    shot_embeddings: torch.Tensor) -> TenantBank:
     """Enroll one new way for ``tenant`` from its (k, V) shot embeddings.

@@ -7,19 +7,23 @@ episode's support batch goes through the train-mode forward, its query
 batch through another train-mode forward on the support's new BN state,
 the support embeddings become the PN-as-FC head (``support_sums`` ->
 ``pn_fc_from_sums``), and the loss is the query's cross-entropy.  Only
-the support's new BN state is returned.
+the support's new BN state is returned.  ``get_meta_trained_tcn`` is
+the reduced embedder the reference's FSL/CL benchmarks and its quickstart
+meta-train once and reuse.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.core import protonet as pn
+from repro_torch.data import EpisodicSampler, GlyphClasses, split_classes
 from repro_torch.kernels.dispatch import require_device
-from repro_torch.models.build import cross_entropy
+from repro_torch.models.build import build_tcn_bundle, cross_entropy
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.tcn import tcn_forward
-from repro_torch.training.optim import apply_updates
+from repro_torch.models.tcn import tcn_empty_state, tcn_forward
+from repro_torch.training.optim import adamw, apply_updates
 from repro_torch.training.trainer import value_and_grad
 
 
@@ -71,3 +75,46 @@ def fsl_episode(embed, sampler, ep: int, n_ways: int, k: int, *,
     acc = float(torch.mean((pred == qy.long()).to(torch.float32)))
     return acc, {"sx": sx, "sy": sy, "qx": qx, "qy": qy, "emb_s": emb_s,
                  "emb_q": emb_q, "w": w, "b": b, "pred": pred}
+
+
+_META_TRAINED: dict = {}
+
+
+def get_meta_trained_tcn(episodes: int = 260, img: int = 12,
+                         n_classes: int = 40, seed: int = 0, *,
+                         device="cuda", params=None):
+    """Meta-train the paper's TCN PN embedder, reduced (3 blocks of 16
+    channels, k=5, embed_dim 32), on ``img`` x ``img`` glyphs: ``episodes``
+    5-way 3-shot 3-query episodes of the first half of ``n_classes``
+    classes, AdamW 2e-3.  Returns (cfg, bundle, params, state, ds,
+    test_cls): the trained tree, its BN state, the glyph classes and the
+    unseen half.  The result is kept per (episodes, img, n_classes, seed,
+    device) and reused; ``params`` (an initial tree, e.g. a reference tree
+    carried over with ``convert.params_from_jax``) replaces the seeded
+    init, and such a run is not kept."""
+    dev = require_device(device)
+    key = (episodes, img, n_classes, seed, str(dev))
+    if params is None and key in _META_TRAINED:
+        return _META_TRAINED[key]
+    cfg = get_config("chameleon-tcn").replace(
+        tcn_channels=(16, 16, 16), tcn_kernel=5, embed_dim=32, n_classes=5)
+    bundle = build_tcn_bundle(cfg, dev)
+    keep = params is None
+    if keep:
+        params = bundle.init(torch.Generator().manual_seed(seed))
+    state = tcn_empty_state(cfg, dev)
+    ds = GlyphClasses(n_classes, seed=seed, size=img)
+    train_cls, test_cls = split_classes(n_classes, 0.5, seed=seed)
+    sampler = EpisodicSampler(ds, train_cls, seed=seed + 1)
+    opt = adamw(2e-3)
+    opt_state = opt[0](params)
+    step = make_episode_step(cfg, opt)
+    for ep in range(episodes):
+        batch = [torch.from_numpy(a).to(dev) for a in
+                 sampler.episode(ep, n_ways=5, k_shots=3, n_query=3)]
+        params, state, opt_state, _, _ = step(params, state, opt_state,
+                                              *batch)
+    out = (cfg, bundle, params, state, ds, test_cls)
+    if keep:
+        _META_TRAINED[key] = out
+    return out

@@ -1,5 +1,6 @@
-"""The port stands alone: no file under src/repro_torch/ nor chip_smoke.py
-imports jax, ml_dtypes or the JAX package (checked on the source, so a
+"""The port stands alone: no file under src/repro_torch/, no example twin
+(examples/*_torch.py) and not chip_smoke.py imports jax, ml_dtypes, the
+JAX package or the reference's benchmarks (checked on the source, so a
 lazy import inside a function counts too), and an entry point left on its
 default device raises when there is no card instead of falling back to
 the CPU."""
@@ -13,8 +14,9 @@ torch = pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
+    + sorted((ROOT / "examples").glob("*_torch.py")) \
     + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "repro")
+FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "repro", "benchmarks")
 
 
 def _imported_roots(path: Path):
@@ -43,7 +45,9 @@ def test_port_files_found():
             "trees.py", "layers.py", "transformer.py", "params.py",
             "lm.py", "host.py", "shapes.py", "olmo_1b.py",
             "qwen25_32b.py", "moe.py", "spec.py", "rwkv.py",
-            "ssm.py", "analytic.py", "costmodel.py", "train.py"} <= names
+            "ssm.py", "analytic.py", "costmodel.py", "train.py",
+            "quickstart_torch.py", "serve_multitenant_torch.py",
+            "serve_stream_torch.py"} <= names
 
 
 @pytest.mark.parametrize("module", ["repro_torch.kernels.dispatch",
