@@ -27,6 +27,20 @@ non-zero):
            then one 784-sample tick (t_chunk=784, split into
            ceil(784/max_chunk_len) tcn_chunk launches) bit for bit equal to
            t_chunk=16;
+  mesh     the services over a device mesh (launch/mesh.make_mesh, DTensor
+           leaves), one NCCL rank per card this process sees (a world of
+           one on one card): tcn_chunk at each rank's shape (64 / world
+           slots) bit for bit against its plain version; the serve drive
+           through StreamSessionService(mesh=) with the 64 slots over
+           "data", counted (one tcn_chunk launch per tick on every rank),
+           every rank's outputs the same and, on rank 0's card, bit for bit
+           equal to the unsharded service, to t_chunk 1, to park/resume
+           (resumes on other ranks counted) and, with more than one rank,
+           to the bank over "model"; olmo-1b at full width (2 of 16
+           layers) through LMSessionService(mesh=), 8 lanes, 32 greedy
+           tokens bit for bit equal to the unsharded service, the cache
+           still sharded, paged=True refused; the 64 x 16 tick through the
+           mesh beside the bare service's.  Prints ``mesh_ranks``;
   fsl      5-way 1-shot and 5-shot episodes through protonet.adapt;
   train    meta-trains chameleon-tcn at full width on 28x28 glyphs (784-step
            sequences): 300 prototypical episodes (5-way 3-shot 3-query,
@@ -5010,6 +5024,321 @@ def phase_lm_train(dev, smi: str, seed: int = 26) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# mesh: the services over a device mesh, one NCCL rank per card
+# ---------------------------------------------------------------------------
+
+MESH_TIMEOUT = 600  # s: the join of the mesh phase's ranks
+MESH_LM_LAYERS, MESH_LM_GEN, MESH_LM_SEQ = 2, 32, 256
+MESH_TICK_ROUNDS = 4  # alternated timings of the mesh and the bare tick
+
+
+def mesh_rows(tree, axes=None) -> set:
+    """{(local extent, global extent, placements)} of a tree of DTensors
+    along each leaf's sharded axis (axis 0 unless ``axes`` says)."""
+    from repro_torch.utils.trees import tree_leaves
+
+    leaves = tree_leaves(tree)
+    axes = [0] * len(leaves) if axes is None else tree_leaves(axes)
+    return {(a.to_local().shape[ax], a.shape[ax], repr(a.placements))
+            for a, ax in zip(leaves, axes)}
+
+
+def mesh_digest(outs: dict) -> str:
+    """A digest of a drive's outputs (every rank's must be the same)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for s in sorted(outs):
+        for a in outs[s]:
+            h.update(b"none" if a is None else a.tobytes())
+    return h.hexdigest()
+
+
+def mesh_tcn(rank, world, data, model, dev, seed) -> dict:
+    """The serve phase's drive through StreamSessionService(mesh=) at the
+    full chameleon-tcn width: 64 slots over ``data`` (64 / world a rank),
+    counted; tcn_chunk at this rank's shape against its plain version;
+    the bank over ``model``; t_chunk 1; park/resume across ranks; every
+    rank's outputs the same; rank 0 holds them against the unsharded
+    service and times the 64 x 16 tick through the mesh and bare."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ref import tcn_chunk_plain
+    from repro_torch.kernels.tcn_block import tcn_block, tcn_chunk
+    from repro_torch.sessions import StreamSessionService
+
+    cfg = get_config("chameleon-tcn")
+    rng = np.random.default_rng(seed)
+    bundle, params, bn = make_model(cfg, dev, seed)
+    audio = rng.normal(size=(N_SLOTS, STREAM_LEN, cfg.tcn_in_channels)
+                       ).astype(np.float32)
+    shots = rng.normal(size=(N_WAYS, K_SHOTS, STREAM_LEN,
+                             cfg.tcn_in_channels)).astype(np.float32)
+    schedule = make_schedule(rng, N_SLOTS, STREAM_LEN)
+    per = N_SLOTS // world
+
+    def service(mesh, t_chunk=T_CHUNK):
+        return StreamSessionService(
+            bundle, params, bn, n_slots=N_SLOTS, max_tenants=N_TENANTS,
+            max_ways=8, t_chunk=t_chunk, fused=True, mesh=mesh)
+
+    out = {"per_rank": per}
+    # the kernel at the shape each rank's tick gives it
+    g = torch.Generator(device=dev).manual_seed(seed + rank)
+    for T in CHUNK_TS:
+        for quantize in (False, True):
+            blocks, grid, x, lengths = chunk_inputs(g, cfg, per, T, False,
+                                                    dev)
+            kw = dict(k=cfg.tcn_kernel, act_scale=cfg.act_scale,
+                      quantize=quantize)
+            want, hr = tcn_chunk_plain(blocks, grid, x, lengths, **kw)
+            got, h = tcn_chunk(blocks, grid, x, lengths, inplace=True, **kw)
+            sync(dev)
+            if not (torch.equal(h, hr) and same_grid(got, want)):
+                raise AssertionError(f"mesh rank {rank}: tcn_chunk S={per} "
+                                     f"T={T} quantize={quantize} differs "
+                                     "from the plain version")
+    svc = service(data)
+    tcn_block.launches = tcn_chunk.launches = 0
+    with counting(ref, PLAIN_CHUNK) as plain:
+        main, polls = drive(svc, audio, schedule, shots)
+    chunk, strip = check_drive_launches(f"mesh rank {rank}", svc, cfg,
+                                        plain.calls)
+    out["launches"] = chunk + strip
+    out["ticks"] = svc.dispatches
+    rows = mesh_rows(svc.states)
+    # sharded on every world size: a world of one runs the same gathers
+    if rows != {(per, N_SLOTS, repr(svc.states["t"].placements))} or \
+            "Shard(dim=0)" not in next(iter(rows))[2]:
+        raise AssertionError(f"mesh rank {rank}: grid rows {rows}")
+    if any(p["steps"] != STREAM_LEN for p in polls) or \
+            polls[0]["n_ways"] != N_WAYS:
+        raise AssertionError(f"mesh rank {rank}: steps or ways lost")
+    digest = mesh_digest(main)
+    if world > 1:  # the bank over model: 8 / world tenants a rank
+        bsvc = service(model)
+        banked, _ = drive(bsvc, audio, schedule, shots)
+        brows = mesh_rows(bsvc.bank)
+        if {r[:2] for r in brows} != {(N_TENANTS // world, N_TENANTS)}:
+            raise AssertionError(f"mesh rank {rank}: bank rows {brows}")
+        if not same_outputs(main, banked):
+            raise AssertionError(f"mesh rank {rank}: the bank over model "
+                                 "changed the outputs")
+    one, _ = drive(service(data, 1), audio, schedule, shots)
+    if not same_outputs(main, one):
+        raise AssertionError(f"mesh rank {rank}: t_chunk {T_CHUNK} and 1 "
+                             "differ")
+    psvc = service(data)
+    moves = {}  # sid -> [owner rank of its park slot, of its resume slot]
+    pack, unpack = psvc._pack, psvc._unpack
+
+    def rec_pack(slot, sid):
+        moves.setdefault(sid, [slot // per, None])
+        return pack(slot, sid)
+
+    def rec_unpack(slot, blob):
+        m = moves.get(psvc.sched.sid_of[slot])
+        if m is not None:
+            m[1] = slot // per
+        return unpack(slot, blob)
+
+    psvc._pack, psvc._unpack = rec_pack, rec_unpack
+    parked, _ = drive(psvc, audio, schedule, shots, park_every=4)
+    if not same_outputs(main, parked):
+        raise AssertionError(f"mesh rank {rank}: park/resume changed the "
+                             "outputs")
+    out["evictions"] = psvc.evictions
+    out["cross_rank_resumes"] = sum(1 for a, b in moves.values()
+                                    if b is not None and a != b)
+    if len(schedule) >= 4 and (not psvc.evictions or (
+            world > 1 and not out["cross_rank_resumes"])):
+        raise AssertionError(f"mesh rank {rank}: no session resumed in "
+                             "another slot (rank)")
+    digests = [None] * world
+    dist.all_gather_object(digests, digest)
+    if len(set(digests)) != 1:
+        raise AssertionError(f"mesh: ranks returned different outputs "
+                             f"{digests}")
+    if rank == 0:  # the unsharded service on rank 0's card
+        bare = service(None)
+        want, _ = drive(bare, audio, schedule, shots)
+        if not same_outputs(main, want):
+            raise AssertionError("mesh: the sharded service differs from "
+                                 "the unsharded one")
+        sids = [bare.open_session() for _ in range(N_SLOTS)]
+        xb = {sid: audio[i, :T_CHUNK] for i, sid in enumerate(sids)}
+    sids = [svc.open_session() for _ in range(N_SLOTS)]
+    x = {sid: audio[i, :T_CHUNK] for i, sid in enumerate(sids)}
+    tcn_block.launches = tcn_chunk.launches = 0
+    svc.push_audio(x)
+    if (tcn_chunk.launches, tcn_block.launches) != (1, 0):
+        raise AssertionError(f"mesh rank {rank}: a tick launched tcn_chunk "
+                             f"{tcn_chunk.launches} times")
+    # mesh and bare ticks alternated (every rank times the mesh's; the
+    # others wait in its first collective while rank 0 times the bare)
+    mesh_ms, bare_ms = [], []
+    for _ in range(MESH_TICK_ROUNDS):
+        mesh_ms.append(time_ms(lambda: svc.push_audio(x), dev))
+        if rank == 0:
+            bare_ms.append(time_ms(lambda: bare.push_audio(xb), dev))
+    out["tick_ms"] = statistics.median(mesh_ms)
+    if rank == 0:
+        out["bare_tick_ms"] = statistics.median(bare_ms)
+    dist.barrier()
+    return out
+
+
+def mesh_lm(rank, world, data, dev, seed) -> dict:
+    """olmo-1b at full width (MESH_LM_LAYERS of its 16 layers) through
+    LMSessionService(mesh=): 8 lanes over ``data``, two waves of greedy
+    tokens; the cache still sharded after them; rank 0 holds the tokens
+    against the unsharded service bit for bit; paged=True refused."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_bundle
+    from repro_torch.sessions import LMSessionService
+
+    cfg = get_config("olmo-1b").replace(n_layers=MESH_LM_LAYERS)
+    bundle = build_bundle(cfg, dev)
+    params = bundle.init(torch.Generator(device=dev).manual_seed(seed))
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(37, 120)))
+               .astype(np.int32) for _ in range(LM_SLOTS)]
+
+    def run(mesh):
+        svc = LMSessionService(bundle, params, n_slots=LM_SLOTS,
+                               seq_cap=MESH_LM_SEQ, t_chunk=LM_T_CHUNK,
+                               mesh=mesh)
+        sids = [svc.open_session(p) for p in prompts]
+        waves = [svc.decode({s: MESH_LM_GEN // 2 for s in sids})
+                 for _ in range(2)]
+        return svc, [[w[s] for s in sids] for w in waves]
+
+    svc, toks = run(data)
+    rows = mesh_rows(svc.cache, svc._batch_axes)
+    per = LM_SLOTS // world
+    if {r[:2] for r in rows} != {(per, LM_SLOTS)}:
+        raise AssertionError(f"mesh rank {rank}: LM cache rows {rows}")
+    try:
+        LMSessionService(bundle, params, n_slots=LM_SLOTS,
+                         seq_cap=MESH_LM_SEQ, mesh=data, paged=True)
+        raise AssertionError("mesh: paged=True with a mesh was accepted")
+    except ValueError:
+        pass
+    every = [None] * world
+    dist.all_gather_object(every, toks)
+    if any(t != toks for t in every):
+        raise AssertionError("mesh: ranks returned different LM tokens")
+    out = {"lm_tokens": sum(len(t) for w in toks for t in w)}
+    if rank == 0:
+        _, want = run(None)
+        if toks != want:
+            raise AssertionError("mesh: the sharded LM service differs from "
+                                 "the unsharded one")
+    dist.barrier()
+    return out
+
+
+def mesh_rank(rank: int, world: int, rdv: str, out: str, seed: int,
+              device_type: str = "cuda") -> None:
+    """One rank of the mesh phase: its own card and NCCL (gloo and the CPU
+    when ``device_type`` is "cpu", for a rehearsal), the meshes (world, 1)
+    and (1, world) over ("data", "model")."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cuda = device_type == "cuda"
+    if cuda:
+        torch.cuda.set_device(rank)
+    dist.init_process_group("nccl" if cuda else "gloo",
+                            init_method=f"file://{rdv}", rank=rank,
+                            world_size=world,
+                            timeout=timedelta(seconds=MESH_TIMEOUT))
+    try:
+        dev = torch.device("cuda", rank) if cuda else torch.device("cpu")
+        data = make_mesh((world, 1), ("data", "model"),
+                         device_type=device_type)
+        model = make_mesh((1, world), ("data", "model"),
+                          device_type=device_type) if world > 1 else data
+        t0 = time.perf_counter()
+        res = mesh_tcn(rank, world, data, model, dev, seed)
+        res["tcn_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res.update(mesh_lm(rank, world, data, dev, seed + 1))
+        res["lm_s"] = time.perf_counter() - t0
+        every = [None] * world
+        dist.all_gather_object(every, res)
+        if rank == 0:
+            Path(out).write_text(json.dumps(every))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_mesh(dev, smi: str, seed: int = 28) -> dict:
+    """Spawn one NCCL rank per card this process sees (a world of one on
+    one card runs the same code) and run ``mesh_rank`` in each; a rank
+    that fails or outlives MESH_TIMEOUT fails the phase.  Returns the
+    tcn_block launches of every rank's main drive."""
+    import torch
+    import torch.multiprocessing as mp
+
+    world = torch.cuda.device_count()
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    rdv, out = build / "mesh_rdv", build / "mesh_result.json"
+    for f in (rdv, out):
+        f.unlink(missing_ok=True)
+    torch.cuda.empty_cache()
+    ctx = mp.start_processes(mesh_rank, args=(world, str(rdv), str(out),
+                                              seed),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + MESH_TIMEOUT
+    try:
+        while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+            if time.monotonic() >= deadline:
+                raise TimeoutError(f"mesh: {world} ranks still running after "
+                                   f"{MESH_TIMEOUT} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+        rdv.unlink(missing_ok=True)
+    ranks = json.loads(out.read_text())
+    out.unlink()
+    r0 = ranks[0]
+    log(f"mesh_ranks {world}")
+    log(f"mesh chameleon-tcn: {N_SLOTS} slots over data ({r0['per_rank']} a "
+        f"rank), {N_SLOTS} ragged {STREAM_LEN}-sample streams in "
+        f"{r0['ticks']} ticks, tcn_chunk on every rank's slots (launches "
+        f"{[r['launches'] for r in ranks]} by rank, strip entry included), "
+        f"bit for bit equal to the unsharded service, to t_chunk 1 and to "
+        f"park/resume ({r0['evictions']} evictions, "
+        f"{r0['cross_rank_resumes']} resumes on another rank)"
+        + ("; the bank over model equal" if world > 1 else ""))
+    log(f"mesh olmo-1b ({MESH_LM_LAYERS} of 16 layers, full width): "
+        f"{LM_SLOTS} lanes over data, {r0['lm_tokens']} greedy tokens bit "
+        "for bit equal to the unsharded service; the cache still sharded "
+        "after the waves; paged=True refused")
+    log(f"timing mesh tick ({N_SLOTS}x{T_CHUNK} samples, end to end, "
+        f"{world} rank(s), median of {MESH_TICK_ROUNDS} medians alternated "
+        f"with the bare service's): ms={r0['tick_ms']:.4f}; bare service "
+        f"ms={r0['bare_tick_ms']:.4f} [{smi}]")
+    return {"launches": sum(r["launches"] for r in ranks), "world": world,
+            "tick_ms": r0["tick_ms"], "bare_tick_ms": r0["bare_tick_ms"]}
+
+
 EMPTY_KERNEL = r"""
 #include <cuda_runtime.h>
 __global__ void empty_kernel() {}
@@ -5124,6 +5453,7 @@ def main() -> int:
     tb_time, pe_time = phase("timings", phase_timings, cfg, dev, floors,
                              smi)
     serve = phase("serve", phase_serve, cfg, dev)
+    mesh = phase("mesh", phase_mesh, dev, smi)
     fsl = phase("fsl", phase_fsl, cfg, dev)
     train = phase("train", phase_train, cfg, dev)
     cl = phase("cl", phase_cl, cfg, dev)
@@ -5179,7 +5509,8 @@ def main() -> int:
         {"name": "tcn_block", "route": "cuda",
          "source": "src/repro_torch/csrc/tcn_block.cu",
          "replaces": "src/repro/kernels/tcn_block.py:166",
-         "launches": serve["launches"] + sum(c[1] for c in fsl.values())
+         "launches": serve["launches"] + mesh["launches"]
+         + sum(c[1] for c in fsl.values())
          + cl["launches"] + plane["launches"] + kws["launches"]
          + kws_server["launches"] + examples["launches"]
          + audio["launches"]

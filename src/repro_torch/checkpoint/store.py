@@ -24,7 +24,12 @@ entry, so the reference reads it back as bfloat16; ``load_sessions`` turns
 a ``"bfloat16"`` entry of either package's file into the same bits.  A
 sidecar naming any other dtype numpy cannot name (fp8) is refused with a
 ``TypeError``.  ``restore_into`` puts each leaf on the device of the
-target's leaf; the reference's ``shardings=`` is not ported (one card).
+target's leaf, or, with ``shardings=`` (a tree of launch/specs.NamedSharding
+or anything with a ``place(full)`` method), places it on the current mesh:
+the files hold whole arrays, so a checkpoint written at one world size
+restores at any other.  ``save`` of a tree holding DTensors gathers each
+(a collective: every rank of the mesh calls it), and the mesh's first rank
+writes.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ import zlib
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.utils.host import BF16_HOST, from_host
 from repro_torch.utils.host import to_host as _host
@@ -91,11 +97,34 @@ def _map_leaves(fn, tree, prefix: str = ""):
     return fn(prefix, tree)
 
 
+def _gathered(tree):
+    """(path-keyed leaves with every DTensor gathered whole, the mesh of
+    the first DTensor or None)."""
+    mesh, out = None, []
+    for k, v in _flatten_with_path(tree):
+        if hasattr(v, "full_tensor"):
+            mesh = mesh if mesh is not None else v.device_mesh
+            v = v.full_tensor()
+        out.append((k, v))
+    return out, mesh
+
+
 def save(ckpt_dir: str, step: int, tree) -> str:
     """Atomic checkpoint write of a tree of tensors or arrays.  Returns the
     final path."""
+    leaves, mesh = _gathered(tree)
+    final = os.path.join(ckpt_dir, f"step_{step:012d}")
+    if mesh is not None and mesh.size() > 1:  # one writer; the rest wait
+        if dist.get_rank() == int(mesh.mesh.flatten()[0]):
+            _write(ckpt_dir, step, leaves)
+        dist.barrier()
+        return final
+    return _write(ckpt_dir, step, leaves)
+
+
+def _write(ckpt_dir: str, step: int, leaves) -> str:
     os.makedirs(ckpt_dir, exist_ok=True)
-    flat = {k: _host(v) for k, v in _flatten_with_path(tree)}
+    flat = {k: _host(v) for k, v in leaves}
     tmp = os.path.join(ckpt_dir, f".tmp_step_{step}")
     final = os.path.join(ckpt_dir, f"step_{step:012d}")
     if os.path.exists(tmp):
@@ -164,10 +193,13 @@ def restore_flat(ckpt_dir: str, *, verify_crc: bool = True):
     return None
 
 
-def restore_into(ckpt_dir: str, target_tree, *, verify_crc: bool = True):
+def restore_into(ckpt_dir: str, target_tree, *, shardings=None,
+                 verify_crc: bool = True):
     """Restore into the structure of ``target_tree``: each leaf comes back
     with the target leaf's dtype, as a tensor on the target tensor's
-    device (or an array where the target holds an array)."""
+    device (or an array where the target holds an array).  ``shardings``
+    (a tree of the target's structure) re-shards every leaf under the
+    current mesh: each rank keeps its own block, and nothing is sent."""
     got = restore_flat(ckpt_dir, verify_crc=verify_crc)
     if got is None:
         return None
@@ -180,7 +212,13 @@ def restore_into(ckpt_dir: str, target_tree, *, verify_crc: bool = True):
             return from_host(flat[key], like.device, like.dtype)
         return np.asarray(flat[key], dtype=np.asarray(like).dtype)
 
-    return step, _map_leaves(leaf, target_tree)
+    tree = _map_leaves(leaf, target_tree)
+    if shardings is not None:
+        placed = dict(_flatten_with_path(shardings))
+        if placed.keys() != dict(_flatten_with_path(tree)).keys():
+            raise ValueError("shardings tree does not match the target's")
+        tree = _map_leaves(lambda key, a: placed[key].place(a), tree)
+    return step, tree
 
 
 def gc_checkpoints(ckpt_dir: str, keep: int = 3):

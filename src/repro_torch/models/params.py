@@ -69,6 +69,13 @@ def init_params(defs, generator: torch.Generator, device="cuda") -> dict:
     return tree_unflatten(defs, leaves)
 
 
+def abstract_params(defs) -> dict:
+    """A ParamDef tree's shapes and dtypes as tensors on the ``meta``
+    device (no allocation): the reference's ShapeDtypeStruct tree."""
+    return map_defs(lambda d: torch.empty(d.shape, dtype=d.dtype,
+                                          device="meta"), defs)
+
+
 def param_count(defs) -> int:
     n = 0
     for d in tree_leaves(defs):

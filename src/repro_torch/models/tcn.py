@@ -16,13 +16,12 @@ Params are nested dicts of tensors in the reference's layout: conv weights
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-
 import torch
 
 from repro_torch.kernels.dispatch import require_device
 from repro_torch.kernels.ref import dilated_conv_ref
 from repro_torch.models.config import ArchConfig
+from repro_torch.models.params import ParamDef
 from repro_torch.quant.log2 import (
     compute_scale,
     dequantize_log2,
@@ -33,14 +32,6 @@ from repro_torch.quant.log2 import (
 )
 
 BN_EPS = 1e-5
-
-
-@dataclass(frozen=True)
-class ParamDef:
-    """Shape and initializer of one TCN parameter (the TCN-only subset of
-    ``repro.sharding.rules.ParamDef``: no sharding axes)."""
-    shape: tuple
-    init: str = "normal"  # normal | zeros | ones
 
 
 def receptive_field(cfg: ArchConfig) -> int:
@@ -54,24 +45,30 @@ def tcn_param_defs(cfg: ArchConfig) -> dict:
     c_in = cfg.tcn_in_channels
     for i, c_out in enumerate(cfg.tcn_channels):
         b: dict = {
-            "conv1_w": ParamDef((k, c_in, c_out)),
-            "conv1_b": ParamDef((c_out,), "zeros"),
-            "conv2_w": ParamDef((k, c_out, c_out)),
-            "conv2_b": ParamDef((c_out,), "zeros"),
-            "bn1": {"scale": ParamDef((c_out,), "ones"),
-                    "bias": ParamDef((c_out,), "zeros")},
-            "bn2": {"scale": ParamDef((c_out,), "ones"),
-                    "bias": ParamDef((c_out,), "zeros")},
+            "conv1_w": ParamDef((k, c_in, c_out),
+                                ("conv_k", "channels_in", "channels")),
+            "conv1_b": ParamDef((c_out,), ("channels",), init="zeros"),
+            "conv2_w": ParamDef((k, c_out, c_out),
+                                ("conv_k", "channels_in", "channels")),
+            "conv2_b": ParamDef((c_out,), ("channels",), init="zeros"),
+            "bn1": {"scale": ParamDef((c_out,), ("channels",), init="ones"),
+                    "bias": ParamDef((c_out,), ("channels",), init="zeros")},
+            "bn2": {"scale": ParamDef((c_out,), ("channels",), init="ones"),
+                    "bias": ParamDef((c_out,), ("channels",), init="zeros")},
         }
         if c_in != c_out:
-            b["down_w"] = ParamDef((1, c_in, c_out))
-            b["down_b"] = ParamDef((c_out,), "zeros")
+            b["down_w"] = ParamDef((1, c_in, c_out),
+                                   ("conv_k", "channels_in", "channels"))
+            b["down_b"] = ParamDef((c_out,), ("channels",), init="zeros")
         defs["blocks"][f"b{i}"] = b
         c_in = c_out
-    defs["head_w"] = ParamDef((c_in, cfg.embed_dim))
-    defs["head_b"] = ParamDef((cfg.embed_dim,), "zeros")
-    defs["fc"] = {"w": ParamDef((cfg.embed_dim, cfg.n_classes), "zeros"),
-                  "b": ParamDef((cfg.n_classes,), "zeros")}
+    defs["head_w"] = ParamDef((c_in, cfg.embed_dim), ("channels_in", None))
+    defs["head_b"] = ParamDef((cfg.embed_dim,), (None,), init="zeros")
+    defs["fc"] = {
+        "w": ParamDef((cfg.embed_dim, cfg.n_classes), (None, "proto"),
+                      init="zeros"),
+        "b": ParamDef((cfg.n_classes,), ("proto",), init="zeros"),
+    }
     return defs
 
 

@@ -50,9 +50,11 @@ from repro_torch.sessions.spec import (
     ngram_drafter,
 )
 from repro_torch.sessions.state import (
+    column_pspecs,
     decode_parked,
     gather_column,
     grid_init,
+    grid_pspecs,
     grid_scan,
     grid_step,
     leaf_axes,
@@ -78,6 +80,7 @@ from repro_torch.sessions.tenancy import (
     bank_clear_tenant,
     bank_fc,
     bank_init,
+    bank_pspecs,
     bank_pack_tenant,
     bank_row_bytes,
     bank_set_store,
@@ -144,13 +147,14 @@ __all__ = [
     "make_verify_chunk_paged", "make_verify_scan", "make_verify_scan_paged",
     "ngram_drafter", "RehearsalBuffer", "AdmissionError", "CapacityError",
     "SlotScheduler", "NO_TENANT", "SessionRecord", "SlotGridService",
-    "StreamSessionService", "decode_parked", "gather_column", "grid_init",
-    "grid_scan", "grid_step", "leaf_axes", "lengths_to_valid",
+    "StreamSessionService", "column_pspecs", "decode_parked",
+    "gather_column", "grid_init", "grid_pspecs", "grid_scan", "grid_step", "leaf_axes", "lengths_to_valid",
     "make_grid_fused", "make_pools", "pack_blocks", "pack_column",
     "pack_slot", "parked_bytes", "reset_slot", "slot_park_bytes",
     "slot_state_bytes", "split_blocks", "unpack_blocks", "unpack_column",
     "unpack_slot", "zero_from_column", "TenantBank", "bank_add_class",
     "bank_clear_tenant", "bank_fc", "bank_init", "bank_pack_tenant",
+    "bank_pspecs",
     "bank_row_bytes", "bank_set_store", "bank_store", "bank_unpack_tenant",
     "bank_update_class",
 ]

@@ -3,7 +3,7 @@ chunked prefill, paged KV with copy-on-write prefix sharing.
 
 The port of ``repro/sessions/lm.py`` (every LM family the port builds:
 dense, MoE and vlm with GQA or MLA caches, the encoder-decoder, RWKV, the
-zamba hybrid; ``mesh=`` is not ported: the port runs on one card).  The slot-grid
+zamba hybrid).  The slot-grid
 virtualization of the TCN service applies — more sessions than slots,
 LRU/cost eviction to a host parking lot, bit-identical resume in any
 slot — but a slot's state is a cache column (every cache leaf sliced
@@ -71,6 +71,16 @@ retired (slot freed, outputs kept).  A parked blob is the column truncated
 to [0, pos) (dense) or the session's blocks (paged), so parked bytes are
 O(pos); the default eviction cost is that size.  bf16 leaves are parked
 as their bits (utils/host.py) and spill in the reference's file format.
+
+Passing ``mesh=`` (a ``DeviceMesh`` of launch/mesh.py, one process per
+rank) shards every cache leaf's session axis over the mesh's ``data``
+axis (sessions/state.column_pspecs): ``cache`` holds DTensors, and it
+stays sharded across dispatches.  Dense caches only: ``paged=True`` with
+a mesh raises.  Every rank makes the same calls with the same arguments;
+each decodes its own lanes with the whole (replicated) params, prefills
+only the columns it holds, and the tokens of a dispatch are gathered, so
+every rank returns the same streams.  A slot's owner packs its column
+and sends the blob to every rank.
 """
 
 from __future__ import annotations
@@ -93,6 +103,7 @@ from repro_torch.sessions.paging import (
 from repro_torch.sessions.service import SessionRecord, SlotGridService
 from repro_torch.sessions.state import (
     PAGED_MARKER,
+    column_pspecs,
     copy_block,
     gather_column,
     leaf_axes,
@@ -105,6 +116,7 @@ from repro_torch.sessions.state import (
     unpack_blocks,
     unpack_column,
 )
+from repro_torch.sharding import spmd
 from repro_torch.utils.host import to_host
 from repro_torch.utils.trees import tree_leaves
 
@@ -297,7 +309,7 @@ class LMSessionService(SlotGridService):
                  tracer=None, device_counters: bool | None = None,
                  paged: bool | None = None, block_len: int = 16,
                  n_blocks: int | None = None, prefix_cache: bool = True,
-                 runtime: RuntimeConfig | None = None):
+                 runtime: RuntimeConfig | None = None, mesh=None):
         if cost_fn is None:
             cost_fn = self._park_cost  # O(pos) bytes: cost-aware by default
         super().__init__(n_slots, t_chunk=t_chunk, max_sessions=max_sessions,
@@ -331,6 +343,10 @@ class LMSessionService(SlotGridService):
             sax >= 0 for sax in tree_leaves(self._seq_axes))
         self._paged_flags = paged_flags(self._batch_axes, self._seq_axes)
         self.block_len = int(block_len)
+        if self.paged and mesh is not None:
+            raise ValueError("paged=True does not compose with mesh= "
+                             "sharding yet; use the dense layout on meshes")
+        self.mesh = mesh
         if self.paged and self.seq_cap % self.block_len:
             raise ValueError(f"seq_cap={self.seq_cap} must be a multiple "
                              f"of block_len={self.block_len}")
@@ -357,8 +373,17 @@ class LMSessionService(SlotGridService):
             self._g_pool_shared = reg.gauge(
                 "pool_blocks_cow_shared", service=self._service_name)
             self._update_pool_gauges()
-        else:
+        elif mesh is None:
             self.cache = bundle.empty_cache(n_slots, self.seq_cap)
+        else:  # sessions over data: each rank allocates its own lanes only
+            self._cache_specs = column_pspecs(specs, self._batch_axes, mesh)
+            entries = []  # every leaf's session-axis entry: all alike
+            map_tree(lambda sp, bax: entries.append(
+                sp[bax] if len(sp) > bax else None),
+                     self._cache_specs, self._batch_axes)
+            self._set_slot_entry(entries[0])
+            self._set_cache(bundle.empty_cache(
+                self._slot_hi - self._slot_lo, self.seq_cap))
         # closed-form parked footprint of one column: sequence-axis leaves
         # per position, recurrent leaves whole
         self._park_fixed = self._park_per_pos = 0
@@ -466,6 +491,20 @@ class LMSessionService(SlotGridService):
         for b in self._blocks.pop(sid, []):
             self.pool.free(b)
 
+    def _cache(self):
+        """The cache this rank computes on: ``cache`` itself, or on a mesh
+        its local shards (they share storage with the DTensors)."""
+        return self.cache if self.mesh is None else self._cache_local
+
+    def _set_cache(self, local) -> None:
+        if self.mesh is None:
+            self.cache = local
+        else:
+            self._cache_local = local
+            self.cache = map_tree(
+                lambda a, sp: spmd.wrap(a, self.mesh, sp), local,
+                self._cache_specs)
+
     def _upload(self, *arrays) -> list[torch.Tensor]:
         """Host int32 arrays to the device in one copy, split there."""
         flat = np.concatenate([np.asarray(a, np.int32).ravel()
@@ -482,9 +521,9 @@ class LMSessionService(SlotGridService):
     def _pack(self, slot: int, sid: int) -> dict:
         sess = self.sessions[sid]
         if not self.paged:
-            return {"kv": pack_column(self.cache, self._batch_axes, slot,
-                                      trunc_axes=self._seq_axes,
-                                      trunc_len=sess.steps)}
+            return {"kv": self._from_slot(slot, lambda s: pack_column(
+                self._cache(), self._batch_axes, s,
+                trunc_axes=self._seq_axes, trunc_len=sess.steps))}
         # paged park: the blocks covering [0, steps) only (recurrent
         # leaves: the slot's column whole), then the session's device
         # blocks are freed (resume allocates fresh ones); the [block_len,
@@ -502,7 +541,9 @@ class LMSessionService(SlotGridService):
 
     def _unpack(self, slot: int, blob: dict) -> None:
         if not self.paged:
-            unpack_column(self.cache, self._batch_axes, slot, blob["kv"])
+            if self._holds_slot(slot):
+                unpack_column(self._cache(), self._batch_axes,
+                              slot - self._slot_lo, blob["kv"])
             return
         sid = self.sched.sid_of[slot]
         n_keep = int(np.asarray(blob[PAGED_MARKER]).reshape(-1)[1])
@@ -517,8 +558,10 @@ class LMSessionService(SlotGridService):
 
     def _reset(self, slot: int) -> None:
         if not self.paged:
-            map_tree(lambda a, ax: a.select(ax, slot).zero_(),
-                     self.cache, self._batch_axes)
+            if self._holds_slot(slot):
+                map_tree(lambda a, ax: a.select(
+                    ax, slot - self._slot_lo).zero_(),
+                         self._cache(), self._batch_axes)
             return
         # O(1) admission: clearing the host table row makes every stale
         # pool byte unreachable (reads past a lane's kv_len are masked and
@@ -611,9 +654,9 @@ class LMSessionService(SlotGridService):
                     row, = self._upload(self._table[slot])
                     self._prefill_col(self._params, self.cache, row, toks,
                                       off)
-                else:
-                    self._prefill_col(self._params, self.cache, slot, toks,
-                                      off)
+                elif self._holds_slot(slot):
+                    self._prefill_col(self._params, self._cache(),
+                                      slot - self._slot_lo, toks, off)
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
             self._record_dispatch(time.perf_counter() - t0, f"P{n}")
@@ -730,15 +773,25 @@ class LMSessionService(SlotGridService):
             t0 = time.perf_counter()
             with self.tracer.span("dispatch", cat="lm", shape=shape,
                                   lanes=len(lanes)):
-                host = (tok, pos, inp, n_inp, n_steps)
+                lo, hi = self._slot_lo, self._slot_hi  # this rank's lanes
+                host = tuple(a[lo:hi] for a in (tok, pos, inp, n_inp,
+                                                 n_steps))
                 if self.paged:
                     host += (self._table,)
                 args = self._upload(*host)
                 if self.paged:
                     args = [args[5]] + args[:5]
-                self.cache, tok_d, _, ys_d = self._decode_scan(
-                    self._params, self.cache, *args)
-                occ = occupancy_stats(args[-1], t_pad).to(
+                cache, tok_d, _, ys_d = self._decode_scan(
+                    self._params, self._cache(), *args)
+                self._set_cache(cache)
+                steps_d = args[-1]
+                if self._slot_entry is not None:  # every rank's lanes
+                    both = self._gather_slots(
+                        torch.cat([tok_d[:, None], ys_d], dim=1))
+                    tok_d, ys_d = both[:, 0], both[:, 1:]
+                    if self.device_counters:
+                        steps_d, = self._upload(n_steps)
+                occ = occupancy_stats(steps_d, t_pad).to(
                     "cpu", non_blocking=True) if self.device_counters \
                     else None
                 tok2 = tok_d.cpu().numpy()
@@ -887,9 +940,9 @@ class LMSessionService(SlotGridService):
         of two services."""
         sess, slot = self.sessions[sid], self.sched.slot_of[sid]
         if not self.paged:
-            return pack_column(self.cache, self._batch_axes, slot,
-                               trunc_axes=self._seq_axes,
-                               trunc_len=sess.steps)
+            return self._from_slot(slot, lambda s: pack_column(
+                self._cache(), self._batch_axes, s,
+                trunc_axes=self._seq_axes, trunc_len=sess.steps))
         row = self._device_table()[slot][None]
         return map_tree(
             lambda a, bax, sax: pack_column(

@@ -57,9 +57,20 @@ Telemetry: ``dispatches``/``evictions``/``enrolls`` read the service's
 ``dispatch_latency_us`` histogram of its shape, timed after the tick's
 outputs reached the host (so it includes the device work), and
 ``device_counters=True`` adds the tick's occupancy, computed on the
-device from the tick's lengths (obs/device.py).  The reference's ``mesh=``
-(and its ``grid_pspecs``/``bank_pspecs``) is not ported: the port runs on
-one card.
+device from the tick's lengths (obs/device.py).
+
+Passing ``mesh=`` (a ``DeviceMesh`` of launch/mesh.py, one process per
+rank) shards the slot grid over the mesh's ``data`` axis and the dense
+tenant bank over ``model`` (sessions/state.grid_pspecs,
+sessions/tenancy.bank_pspecs): ``states`` and ``bank`` hold DTensors, a
+paged pool stays whole on every rank.  Every rank makes the same calls
+with the same arguments, so the host side (scheduler, parking lot,
+tenant registry) is the same everywhere, and every rank returns the same
+results.  A tick runs ``tcn_chunk`` on each rank's own slots; the slots'
+tenant rows are gathered once a push and the per-slot outputs once a
+tick.  A slot's or a tenant's owner packs it and sends the blob to every
+rank; unpacking writes only where the shard lives.  On a one-rank mesh
+nothing is sent and every result is the unsharded service's bit for bit.
 """
 
 from __future__ import annotations
@@ -87,6 +98,7 @@ from repro_torch.sessions.rehearsal import RehearsalBuffer
 from repro_torch.sessions.scheduler import AdmissionError, SlotScheduler
 from repro_torch.sessions.state import (
     grid_init,
+    grid_pspecs,
     grid_scan,
     make_grid_fused,
     pack_slot,
@@ -96,15 +108,19 @@ from repro_torch.sessions.state import (
     unpack_slot,
 )
 from repro_torch.sessions.tenancy import (
+    TenantBank,
     bank_add_class,
     bank_clear_tenant,
     bank_fc,
     bank_init,
     bank_pack_tenant,
+    bank_pspecs,
     bank_row_bytes,
     bank_unpack_tenant,
     bank_update_class,
 )
+from repro_torch.sharding import spmd
+from repro_torch.sharding.rules import map_specs
 
 NO_TENANT = -1
 
@@ -169,6 +185,35 @@ class SlotGridService:
         self._g_parked_bytes = reg.gauge("parked_bytes", service=svc)
         self._parked_blob_bytes: dict[int, int] = {}  # sid -> host bytes
         self._lat_hists: dict[str, Any] = {}  # shape -> Histogram
+        # a mesh's split of the slot axis: the mesh axes it is sharded
+        # over (None: every rank holds every slot) and this rank's
+        # [lo, hi); subclasses set the entry once their specs are known
+        self.mesh = None
+        self._set_slot_entry(None)
+
+    # -- slots over a mesh ----------------------------------------------------
+    def _set_slot_entry(self, entry) -> None:
+        self._slot_entry = entry
+        self._slot_lo, self._slot_hi = (0, self.n_slots) \
+            if self._slot_entry is None \
+            else spmd.local_range(self.mesh, entry, self.n_slots)
+
+    def _holds_slot(self, slot: int) -> bool:
+        return self._slot_lo <= slot < self._slot_hi
+
+    def _from_slot(self, slot: int, fn):
+        """``fn(local slot index)`` on the slot's owner, its host result
+        on every rank."""
+        if self._slot_entry is None:
+            return fn(slot)
+        src = spmd.owner(self.mesh, self._slot_entry, slot, self.n_slots)
+        return spmd.from_owner(self.mesh, src,
+                               lambda: fn(slot - self._slot_lo))
+
+    def _gather_slots(self, rows):
+        """Per-slot rows of this rank's slots -> every slot's, on every
+        rank (one all-gather over the slot axes)."""
+        return spmd.gather(rows, self.mesh, self._slot_entry)
 
     # -- parking-lot accounting ---------------------------------------------
     @property
@@ -395,7 +440,8 @@ class SlotGridService:
     def spill_parking(self, path: str, *, include_bound: bool = False) -> str:
         """Write the parking lot to ``path`` (checkpoint/store), so
         sessions survive a restart.  ``include_bound=True`` parks every
-        bound session first (a full drain for a planned shutdown)."""
+        bound session first (a full drain for a planned shutdown).  On a
+        mesh the first rank writes and every rank returns the path."""
         if include_bound:
             for sid in list(self.sched.slot_of):
                 self.park(sid)
@@ -403,7 +449,12 @@ class SlotGridService:
                 "sessions": {str(sid): self._session_spill_meta(sid)
                              for sid in self.parking}}
         meta.update(self._spill_extra())
-        return save_sessions(path, self.parking, meta)
+        if self.mesh is None:
+            return save_sessions(path, self.parking, meta)
+        # every rank holds the same lot: the mesh's first rank writes it
+        return spmd.from_owner(self.mesh, int(self.mesh.mesh.flatten()[0]),
+                               lambda: save_sessions(path, self.parking,
+                                                     meta))
 
     def restore_parking(self, path: str) -> list[int]:
         """Adopt a spilled parking lot into this (possibly fresh) service:
@@ -563,7 +614,7 @@ class StreamSessionService(SlotGridService):
                  bank_blocks: int | None = None, rehearsal_cap: int = 0,
                  metrics: MetricsRegistry | None = None, tracer=None,
                  device_counters: bool | None = None,
-                 runtime: RuntimeConfig | None = None):
+                 runtime: RuntimeConfig | None = None, mesh=None):
         super().__init__(n_slots, t_chunk=t_chunk, max_sessions=max_sessions,
                          cost_fn=cost_fn, stale_window=stale_window,
                          metrics=metrics, tracer=tracer,
@@ -594,7 +645,17 @@ class StreamSessionService(SlotGridService):
                 params, {"x": x}, state=bn_state, quantize=quantize)
         self._params = params
         self._bn = bn_state
-        self.states = grid_init(cfg, n_slots, dev)
+        self.mesh = mesh
+        self._tenant_entry = None
+        self._tenant_lo = 0
+        if mesh is None:
+            self.states = grid_init(cfg, n_slots, dev)
+        else:  # slots over data: each rank allocates its own block only
+            self._grid_specs = grid_pspecs(cfg, mesh, n_slots)
+            self._set_slot_entry(self._grid_specs["t"][0]
+                                 if self._grid_specs["t"] else None)
+            self._set_grid(grid_init(cfg, self._slot_hi - self._slot_lo,
+                                     dev))
         # Bank layout: the dense (T, max_ways, V) table, or the paged pool
         # where max_ways is the per-tenant growth cap (rounded up to whole
         # blocks) rather than a pre-paid allocation
@@ -606,9 +667,19 @@ class StreamSessionService(SlotGridService):
             self.bankpool = PagedBankPool(bank_blocks, bank_block_ways,
                                           cfg.embed_dim, mtb, dev)
             self.bank = None
-        else:
+        elif mesh is None:
             self.bankpool = None
             self.bank = bank_init(max_tenants, max_ways, cfg.embed_dim, dev)
+        else:  # tenants over model
+            self.bankpool = None
+            self._bank_specs = bank_pspecs(
+                bank_init(max_tenants, max_ways, cfg.embed_dim, "meta"), mesh)
+            e = self._bank_specs.s_sums
+            self._tenant_entry = e[0] if e else None
+            lo, hi = (0, max_tenants) if self._tenant_entry is None \
+                else spmd.local_range(mesh, self._tenant_entry, max_tenants)
+            self._tenant_lo = lo
+            self._set_bank(bank_init(hi - lo, max_ways, cfg.embed_dim, dev))
         self.tenant_of_slot = np.full(n_slots, NO_TENANT, np.int32)
         self._free_tenants = list(range(max_tenants))
         self._tenant_ways = np.zeros(max_tenants, np.int32)  # host mirror
@@ -636,16 +707,64 @@ class StreamSessionService(SlotGridService):
     def enrolls(self) -> int:
         return int(self._c_enrolls.value)
 
+    # -- the grid and the bank on this rank -----------------------------------
+    # Without a mesh these are ``states`` and ``bank`` themselves.  With
+    # one, the local shards (cached; they share storage with the DTensors,
+    # so in-place writes show in both), re-wrapped when an update returns
+    # new tensors.
+    def _grid(self) -> dict:
+        return self.states if self.mesh is None else self._grid_local
+
+    def _set_grid(self, local: dict) -> None:
+        if self.mesh is None:
+            self.states = local
+        elif local is not getattr(self, "_grid_local", None):
+            self._grid_local = local
+            self.states = map_specs(
+                lambda sp, a: spmd.wrap(a, self.mesh, sp),
+                self._grid_specs, local)
+
+    def _local_bank(self) -> TenantBank:
+        return self.bank if self.mesh is None else self._bank_local
+
+    def _set_bank(self, local: TenantBank) -> None:
+        if self.mesh is None:
+            self.bank = local
+        else:
+            self._bank_local = local
+            self.bank = TenantBank(*(spmd.wrap(a, self.mesh, sp) for a, sp
+                                     in zip(local, self._bank_specs)))
+
+    def _bank_row(self, tenant: int, fn) -> None:
+        """Keep ``fn(local bank, local row)``, the updated local bank, where
+        the tenant's row lives; every other rank skips it."""
+        lo = self._tenant_lo
+        if lo <= tenant < lo + self._local_bank().counts.shape[0]:
+            self._set_bank(fn(self._local_bank(), tenant - lo))
+
+    def _pack_tenant_row(self, tenant: int) -> dict:
+        """``bank_pack_tenant`` on the row's owner, on every rank."""
+        if self._tenant_entry is None:
+            return bank_pack_tenant(self._local_bank(), tenant)
+        src = spmd.owner(self.mesh, self._tenant_entry, tenant,
+                         len(self._tenant_ways))
+        return spmd.from_owner(self.mesh, src, lambda: bank_pack_tenant(
+            self._bank_local, tenant - self._tenant_lo))
+
     # -- slot-column state hooks --------------------------------------------
     def _pack(self, slot: int, sid: int) -> dict:
-        return pack_slot(self.states, slot, pack_u4=self.quantize,
-                         act_scale=self.cfg.act_scale)
+        return self._from_slot(slot, lambda s: pack_slot(
+            self._grid(), s, pack_u4=self.quantize,
+            act_scale=self.cfg.act_scale))
 
     def _unpack(self, slot: int, blob: dict) -> None:
-        self.states = unpack_slot(self.states, slot, blob)
+        if self._holds_slot(slot):
+            self._set_grid(unpack_slot(self._grid(), slot - self._slot_lo,
+                                       blob))
 
     def _reset(self, slot: int) -> None:
-        self.states = reset_slot(self.states, slot)
+        if self._holds_slot(slot):
+            self._set_grid(reset_slot(self._grid(), slot - self._slot_lo))
 
     def _on_bind(self, sid: int, slot: int) -> None:
         self.tenant_of_slot[slot] = self.sessions[sid].tenant
@@ -700,7 +819,7 @@ class StreamSessionService(SlotGridService):
             self.bankpool.drop(tenant)
             self._update_pool_gauges()
         else:
-            self.bank = bank_clear_tenant(self.bank, tenant)
+            self._bank_row(tenant, bank_clear_tenant)
         self._tenant_labels.pop(tenant, None)
         if self.rehearsal is not None:
             self.rehearsal.drop(tenant)
@@ -765,7 +884,7 @@ class StreamSessionService(SlotGridService):
             if self.paged_bank:
                 tenant_meta[str(t)] = self.bankpool.pack(t)
             else:
-                row = bank_pack_tenant(self.bank, t)
+                row = self._pack_tenant_row(t)
                 tenant_meta[str(t)] = {
                     "s_sums": row["s_sums"].tolist(),
                     "counts": row["counts"].tolist(),
@@ -792,10 +911,11 @@ class StreamSessionService(SlotGridService):
                 # enroll makes it resident
                 self.bankpool.adopt(t, row)
             else:
-                self.bank = bank_unpack_tenant(self.bank, t, {
-                    "s_sums": np.asarray(row["s_sums"], np.float32),
-                    "counts": np.asarray(row["counts"], np.float32),
-                    "n_ways": np.asarray(row["n_ways"], np.int32)})
+                self._bank_row(t, lambda bank, r, row=row: bank_unpack_tenant(
+                    bank, r, {
+                        "s_sums": np.asarray(row["s_sums"], np.float32),
+                        "counts": np.asarray(row["counts"], np.float32),
+                        "n_ways": np.asarray(row["n_ways"], np.int32)}))
             self._tenant_ways[t] = int(row["n_ways"])
 
     def _restore_session(self, info: dict):
@@ -810,16 +930,23 @@ class StreamSessionService(SlotGridService):
         (paged).  Dense rows come from ``bank_fc`` indexed by each slot's
         tenant (slots without one clamp to row 0; their tenant logits are
         never returned); paged rows from ``paged_bank_fc`` through the slot
-        tables, built on the host and copied to the device in one piece."""
+        tables, built on the host and copied to the device in one piece.
+        On a mesh: the rows of this rank's slots, from every rank's
+        ``bank_fc`` rows when the bank is sharded (one all-gather)."""
+        tenants = self.tenant_of_slot[self._slot_lo:self._slot_hi]
         if self.paged_bank:
-            tables, ways = self.bankpool.slot_tables(self.tenant_of_slot)
+            tables, ways = self.bankpool.slot_tables(tenants)
             tw = torch.from_numpy(
                 np.concatenate([tables, ways[:, None]], axis=1)).to(self.device)
             return paged_bank_fc(self.bankpool.s_sums, self.bankpool.counts,
                                  tw[:, :-1], tw[:, -1])
-        w, b = bank_fc(self.bank)
+        w, b = bank_fc(self._local_bank())
+        if self._tenant_entry is not None:
+            wb = spmd.gather(torch.cat([w, b[..., None]], dim=-1),
+                             self.mesh, self._tenant_entry)
+            w, b = wb[..., :-1], wb[..., -1]
         ids = torch.from_numpy(
-            np.clip(self.tenant_of_slot, 0, w.shape[0] - 1).astype(np.int64)
+            np.clip(tenants, 0, w.shape[0] - 1).astype(np.int64)
         ).to(self.device)
         return w[ids], b[ids]
 
@@ -884,20 +1011,31 @@ class StreamSessionService(SlotGridService):
             t0 = time.perf_counter()
             with self.tracer.span("dispatch", cat="tcn", shape=shape,
                                   lanes=len(arrs), fused=self.fused):
-                xt = torch.from_numpy(x).to(self.device)
-                lt = torch.from_numpy(tick_lens).to(self.device)
+                lo, hi = self._slot_lo, self._slot_hi  # this rank's slots
+                xt = torch.from_numpy(x[lo:hi]).to(self.device)
+                lt = torch.from_numpy(tick_lens[lo:hi]).to(self.device)
                 if self.fused:
-                    self.states, emb, logits = self._fused_chunk(
-                        self._fused_params, self.states, xt, lt)
+                    grid, emb, logits = self._fused_chunk(
+                        self._fused_params, self._grid(), xt, lt)
                 else:
                     valid = torch.arange(t_pad, device=self.device)[None, :] \
                         < lt[:, None]
-                    self.states, emb, logits = grid_scan(
-                        self._params, self._bn, self.cfg, self.states, xt,
+                    grid, emb, logits = grid_scan(
+                        self._params, self._bn, self.cfg, self._grid(), xt,
                         valid, quantize=self.quantize)
+                self._set_grid(grid)
                 # the paged table is block-granular (>= max_ways): keep the
                 # result surface layout-independent
                 tlogits = self._banked(emb, w, b)[..., :self.max_ways]
+                if self._slot_entry is not None:  # every rank's slots
+                    cut = np.cumsum([emb.shape[-1], logits.shape[-1]])
+                    out = self._gather_slots(
+                        torch.cat([emb, logits, tlogits], dim=-1))
+                    emb, logits, tlogits = (out[..., :cut[0]],
+                                            out[..., cut[0]:cut[1]],
+                                            out[..., cut[1]:])
+                    if self.device_counters:
+                        lt = torch.from_numpy(tick_lens).to(self.device)
                 # the occupancy reduces the uploaded lengths on the device;
                 # its copy is queued ahead of the outputs' blocking copies
                 # on the same stream, so it adds no wait of its own
@@ -983,7 +1121,8 @@ class StreamSessionService(SlotGridService):
                 way = self.bankpool.add_class(tenant, emb)
                 self._update_pool_gauges()
             else:
-                self.bank = bank_add_class(self.bank, tenant, emb)
+                self._bank_row(tenant, lambda bank, r: bank_add_class(
+                    bank, r, emb))
                 way = int(self._tenant_ways[tenant])
             self._tenant_ways[tenant] += 1
             if label is not None:
@@ -998,7 +1137,8 @@ class StreamSessionService(SlotGridService):
                 self._ensure_bank_resident(tenant)
                 self.bankpool.update_class(tenant, way, emb)
             else:
-                self.bank = bank_update_class(self.bank, tenant, way, emb)
+                self._bank_row(tenant, lambda bank, r: bank_update_class(
+                    bank, r, way, emb))
         if self.rehearsal is not None:
             self.rehearsal.add(tenant, way, emb.cpu().numpy())
             self._g_rehearsal_bytes.set(self.rehearsal.nbytes())
@@ -1023,12 +1163,15 @@ class StreamSessionService(SlotGridService):
                 self.bankpool.set_way(tenant, way, s, k)
             self._maybe_park_tenant(tenant)
         elif n:
-            s_sums, counts = self.bank.s_sums.clone(), self.bank.counts.clone()
-            s_sums[tenant, :n] = torch.from_numpy(
-                np.stack([s for s, _ in rows])).to(self.device)
-            counts[tenant, :n] = torch.tensor(
-                [float(k) for _, k in rows], device=self.device)
-            self.bank = self.bank._replace(s_sums=s_sums, counts=counts)
+            def rebuild(bank, r):
+                s_sums, counts = bank.s_sums.clone(), bank.counts.clone()
+                s_sums[r, :n] = torch.from_numpy(
+                    np.stack([s for s, _ in rows])).to(self.device)
+                counts[r, :n] = torch.tensor(
+                    [float(k) for _, k in rows], device=self.device)
+                return bank._replace(s_sums=s_sums, counts=counts)
+
+            self._bank_row(tenant, rebuild)
         return n
 
     # -- tenant-state handoff ------------------------------------------------
@@ -1049,7 +1192,7 @@ class StreamSessionService(SlotGridService):
         if self.paged_bank:
             row = self.bankpool.pack(tenant)
         else:
-            row = bank_pack_tenant(self.bank, tenant)
+            row = self._pack_tenant_row(tenant)
         s = np.asarray(row["s_sums"], np.float32).reshape(-1, dim)[:n]
         c = np.asarray(row["counts"], np.float32).reshape(-1)[:n]
         blob = {"s_sums": s, "counts": c, "n_ways": n,
@@ -1088,8 +1231,8 @@ class StreamSessionService(SlotGridService):
             sp = np.zeros((self.max_ways, dim), np.float32)
             cp = np.zeros((self.max_ways,), np.float32)
             sp[:n], cp[:n] = s, c
-            self.bank = bank_unpack_tenant(self.bank, tenant, {
-                "s_sums": sp, "counts": cp, "n_ways": n})
+            self._bank_row(tenant, lambda bank, r: bank_unpack_tenant(
+                bank, r, {"s_sums": sp, "counts": cp, "n_ways": n}))
         self._tenant_ways[tenant] = n
         if blob.get("labels"):
             self._tenant_labels[tenant] = dict(blob["labels"])
@@ -1134,7 +1277,7 @@ class StreamSessionService(SlotGridService):
                      bp.block_ways * (self.cfg.embed_dim + 1) * 4}
             extra.update({f"bank_pool_{k}": v for k, v in bp.stats().items()})
         else:
-            extra = {"tenant_row_bytes": bank_row_bytes(self.bank)}
+            extra = {"tenant_row_bytes": bank_row_bytes(self._local_bank())}
         extra.update(fused=self.fused, paged_bank=self.paged_bank,
                      enrolls=self.enrolls)
         if self.rehearsal is not None:

@@ -273,6 +273,9 @@ class SpeculativeDecoder:
         if verify not in ("scan", "parallel"):
             raise ValueError(f"verify must be 'scan' or 'parallel', "
                              f"got {verify!r}")
+        if getattr(service, "mesh", None) is not None:
+            raise ValueError("speculation over a mesh= service is not "
+                             "ported; speculate on an unsharded service")
         self.svc = service
         self.k = int(k)
         self.drafter = drafter if drafter is not None else ngram_drafter()

@@ -29,8 +29,14 @@ storage with a shared (..., n_blocks + 1, block_len, ...) pool read
 through per-lane int32 block tables (block 0 is the NULL block):
 ``gather_column`` rebuilds the exact dense column of a table row, so the
 decode programs run the dense code on it.  Host copies of bf16 leaves are
-their bits (``utils/host.py``).  Device writes are in place.  The
-reference's ``column_pspecs`` has no meaning on one card.
+their bits (``utils/host.py``).  Device writes are in place.
+
+``grid_pspecs`` and ``column_pspecs`` give the specs (sharding/rules.P)
+that lay a grid over a device mesh: the session axis goes to the mesh
+axis the "slots" rule names (``data`` by default), every other dim stays
+replicated.  Both are divisibility-gated (``pspec_sized``), so a grid
+that does not divide the axis stays replicated and the same service
+construction works on any mesh, one device included.
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ from repro_torch.core.streaming import (
     stream_step,
 )
 from repro_torch.models.config import ArchConfig
+from repro_torch.sharding.rules import DEFAULT_RULES, pspec_sized, resolve_rules
 from repro_torch.utils.host import from_host, to_host
 
 
@@ -103,6 +110,20 @@ def make_grid_fused(cfg: ArchConfig, *, quantize: bool = False,
     ``sessions/state.make_grid_fused``."""
     return make_fused_chunk(cfg, quantize=quantize, backend=backend,
                             device=device, inplace=inplace)
+
+
+def grid_pspecs(cfg: ArchConfig, mesh, n_slots: int, rules: dict | None = None):
+    """Spec tree for the slot grid: the leading slot axis goes to the mesh
+    axis the "slots" logical rule names; all per-session dims stay
+    replicated."""
+    rules = resolve_rules(DEFAULT_RULES if rules is None else rules, mesh)
+
+    def spec(leaf):
+        shape = (n_slots,) + tuple(leaf.shape)
+        axes = ("slots",) + (None,) * leaf.dim()
+        return pspec_sized(axes, rules, shape, mesh)
+
+    return _map(spec, stream_init_single(cfg, "meta"))
 
 
 # ---------------------------------------------------------------------------
@@ -244,6 +265,21 @@ def leaf_axes(make_a, make_b):
         return -1
 
     return map_tree(axis_of, make_a(), make_b())
+
+
+def column_pspecs(tree_shapes, batch_axes, mesh, rules: dict | None = None):
+    """Spec tree for an arbitrary-axis slot grid: each leaf's per-session
+    axis (``batch_axes``, from ``leaf_axes``) goes to the mesh axis the
+    "slots" rule names; every other dim stays replicated.  The LM cache's
+    analog of ``grid_pspecs``: sessions there live on axis 1 of (L, B, S,
+    H, Dh) leaves, not axis 0."""
+    rules = resolve_rules(DEFAULT_RULES if rules is None else rules, mesh)
+
+    def spec(leaf, bax):
+        axes = tuple("slots" if i == bax else None for i in range(leaf.dim()))
+        return pspec_sized(axes, rules, tuple(leaf.shape), mesh)
+
+    return map_tree(spec, tree_shapes, batch_axes)
 
 
 def _as_leaf(p, like: torch.Tensor) -> torch.Tensor:

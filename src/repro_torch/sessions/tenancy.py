@@ -7,6 +7,7 @@ slot classifies against its own tenant's keyword set in one batched
 contraction (core/protonet.pn_logits_banked; the service gathers each
 slot's rows once a push and contracts with pn_logits_rows).  Updates return a new bank,
 as in the reference; the index arithmetic stays on the device.
+``bank_pspecs`` lays the tenant axis over a device mesh.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.protonet import PrototypeStore, store_fc
+from repro_torch.sharding.rules import DEFAULT_RULES, pspec_sized, resolve_rules
 
 
 class TenantBank(NamedTuple):
@@ -32,6 +34,20 @@ def bank_init(max_tenants: int, max_ways: int, dim: int,
         s_sums=torch.zeros((max_tenants, max_ways, dim), device=device),
         counts=torch.zeros((max_tenants, max_ways), device=device),
         n_ways=torch.zeros((max_tenants,), dtype=torch.int32, device=device))
+
+
+def bank_pspecs(bank: TenantBank, mesh, rules: dict | None = None) -> TenantBank:
+    """Spec tree for a TenantBank: the leading tenant axis goes to the mesh
+    axis the "tenants" logical rule names (``model`` by default); ways and
+    embedding dims stay replicated.  Divisibility-gated, so a bank that
+    does not divide the axis replicates instead of failing."""
+    rules = resolve_rules(DEFAULT_RULES if rules is None else rules, mesh)
+
+    def spec(leaf):
+        axes = ("tenants",) + (None,) * (leaf.dim() - 1)
+        return pspec_sized(axes, rules, tuple(leaf.shape), mesh)
+
+    return TenantBank(*(spec(leaf) for leaf in bank))
 
 
 def bank_store(bank: TenantBank, tenant: int) -> PrototypeStore:

@@ -46,6 +46,7 @@ def test_port_files_found():
             "lm.py", "host.py", "shapes.py", "olmo_1b.py",
             "qwen25_32b.py", "moe.py", "spec.py", "rwkv.py",
             "ssm.py", "analytic.py", "costmodel.py", "train.py",
+            "rules.py", "ctx.py", "spmd.py", "mesh.py", "specs.py",
             "quickstart_torch.py", "serve_multitenant_torch.py",
             "serve_stream_torch.py"} <= names
 
@@ -78,7 +79,13 @@ def test_port_files_found():
                                     "repro_torch.configs.shapes",
                                     "repro_torch.launch.analytic",
                                     "repro_torch.launch.train",
-                                    "repro_torch.core.costmodel"])
+                                    "repro_torch.core.costmodel",
+                                    "repro_torch.sharding",
+                                    "repro_torch.sharding.ctx",
+                                    "repro_torch.sharding.spmd",
+                                    "repro_torch.launch",
+                                    "repro_torch.launch.mesh",
+                                    "repro_torch.launch.specs"])
 def test_module_imports_first(module):
     """Each of these imports in a fresh interpreter before anything else of
     the port (the configs import the models, which import dispatch; the
@@ -104,6 +111,7 @@ def test_default_device_entry_points_raise_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
     from repro_torch.configs import get_config
+    from repro_torch.launch import make_mesh, make_production_mesh
     from repro_torch.launch import train as launch_train
     from repro_torch.kernels import (
         make_dilated_conv_op,
@@ -129,6 +137,8 @@ def test_default_device_entry_points_raise_without_a_card():
                       GlyphClasses(5, size=8), range(5)), 0, 5, 1),
                   make_log2_matmul_op, make_dilated_conv_op,
                   make_proto_extract_op,
+                  lambda: make_mesh((1, 1), ("data", "model")),
+                  make_production_mesh,
                   lambda: launch_train.main(["--smoke", "--steps", "1"])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             entry()

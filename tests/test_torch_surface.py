@@ -6,8 +6,9 @@ through ``ast`` (no module of either package is imported for it):
     module's twin under src/repro_torch/ (by any binding, an import
     included), or stands in ``EXCEPTIONS`` with its reason;
   * every exception is still needed (the twin lacks the name);
-  * the reference files without a twin are exactly the mesh and HLO
-    files the port leaves out on purpose.
+  * the reference files without a twin are exactly the two left for a
+    later slice: the mesh dry-run (``launch/dryrun.py``) and the XLA HLO
+    reader (``utils/hlo.py``).
 
 Then the names this surface brought in, against the reference's on the
 CPU: the tree helpers, ``bank_store``/``bank_set_store``, and
@@ -27,24 +28,15 @@ torch = pytest.importorskip("torch")
 ROOT = Path(__file__).resolve().parents[1]
 REF, PORT = ROOT / "src" / "repro", ROOT / "src" / "repro_torch"
 
-MESH_HLO = ("lays work over a device mesh or reads XLA HLO text: no "
-            "meaning on one card")
+MESH_HLO = ("dry-runs a mesh through XLA or reads XLA HLO text: left for "
+            "a later slice")
 PALLAS = "a Pallas body; the port's counterpart has another name"
 REGISTRY = ("the reference's backend registry; the port resolves backends "
             "with dispatch.resolve / require_device")
 
 # (reference module, name): reason.  Three groups only.
 EXCEPTIONS = {
-    # mesh and HLO
-    ("sessions/__init__.py", "bank_pspecs"): MESH_HLO,
-    ("sessions/__init__.py", "grid_pspecs"): MESH_HLO,
-    ("sessions/__init__.py", "column_pspecs"): MESH_HLO,
-    ("sessions/tenancy.py", "bank_pspecs"): MESH_HLO,
-    ("sessions/state.py", "grid_pspecs"): MESH_HLO,
-    ("sessions/state.py", "column_pspecs"): MESH_HLO,
-    ("launch/__init__.py", "make_mesh"): MESH_HLO + " (launch/mesh.py)",
-    ("launch/__init__.py", "make_production_mesh"):
-        MESH_HLO + " (launch/mesh.py)",
+    # HLO
     ("utils/__init__.py", "collective_bytes"): MESH_HLO + " (utils/hlo.py)",
     ("utils/__init__.py", "parse_cost_analysis"):
         MESH_HLO + " (utils/hlo.py)",
@@ -59,9 +51,7 @@ EXCEPTIONS = {
     ("kernels/dispatch.py", "build"): REGISTRY,
     ("kernels/dispatch.py", "registered_ops"): REGISTRY,
 }
-LEFT_OUT = {"sharding/__init__.py", "sharding/ctx.py", "sharding/rules.py",
-            "launch/mesh.py", "launch/specs.py", "launch/dryrun.py",
-            "utils/hlo.py"}
+LEFT_OUT = {"launch/dryrun.py", "utils/hlo.py"}
 
 
 def _bound(path: Path, *, imports: bool) -> set:
