@@ -39,13 +39,28 @@ non-zero):
            to the bank over "model"; olmo-1b at full width (2 of 16
            layers) through LMSessionService(mesh=), 8 lanes, 32 greedy
            tokens bit for bit equal to the unsharded service, the cache
-           still sharded, paged=True refused; the 64 x 16 tick through the
-           mesh beside the bare service's.  Prints ``mesh_ranks``;
+           still sharded, paged=True refused, and scan-mode speculation
+           (K=4, n-gram) over that mesh service, 16 tokens a session bit
+           for bit equal to the unsharded decoder's; the 64 x 16 tick
+           through the mesh beside the bare service's; then olmo-1b at
+           full width and depth with its params and AdamW state placed by
+           param_pspecs / train_state_pspecs and the batch by
+           batch_pspecs: 3 steps under shard_ctx (step ms p50, one step's
+           collectives by type, one step profiled: device busy against
+           wall, beside the unsharded step's) against the unsharded
+           trainer's 3 steps (loss and every param);
+           launch.train.main(--mesh 1x1, 3 steps,
+           8 x 512) against the same call without --mesh (losses and
+           params); decode_fn with placed params and a placed cache, 16
+           greedy steps at 8 lanes, tokens and cache against the
+           replicated twin (every check bit for bit on a world of one).
+           Prints ``mesh_ranks``;
   fsl      5-way 1-shot and 5-shot episodes through protonet.adapt;
   train    meta-trains chameleon-tcn at full width on 28x28 glyphs (784-step
-           sequences): 300 prototypical episodes (5-way 3-shot 3-query,
-           AdamW 2e-3, the train-mode forward through autograd), the mean
-           loss of the last 50 below the first 50's, then 40 QAT episodes;
+           sequences): 150 prototypical episodes (cut from 300: no
+           accuracy gates this phase; 5-way 3-shot 3-query, AdamW 2e-3,
+           the train-mode forward through autograd), the mean loss of the
+           last 50 below the first 50's, then 40 QAT episodes;
            one step twice on the same inputs bit for bit, its time,
            launches and idle share; the Trainer (grad_accum=2, int8_ef)
            killed and resumed from its checkpoint, bit for bit equal to the
@@ -257,6 +272,7 @@ no result when no CUDA device is present.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -2698,7 +2714,10 @@ def phase_audio(cfg, dev, seed: int = 6):
 # on 28x28 glyphs (784-step sequences): 5-way 3-shot 3-query episodes (30
 # sequences a step), AdamW 2e-3, then a QAT fine-tune; 100 glyph classes
 # split 70 / 30 (the 30 unseen classes evaluate and serve)
-TRAIN_CLASSES, TRAIN_EPISODES, QAT_EPISODES = 100, 300, 40
+# 150 meta-training episodes, cut from 300 to give the mesh phase's
+# placed-param LM steps their time: no accuracy gates the phase, and the
+# last 50 episodes' mean loss must still be below the first 50's
+TRAIN_CLASSES, TRAIN_EPISODES, QAT_EPISODES = 100, 150, 40
 TRAIN_SHOTS, TRAIN_QUERY, LOSS_WINDOW = 3, 3, 50
 # Trainer steps of the bundle's loss_fn (grad_accum=2, int8_ef): killed
 # after TRAINER_KILL steps and resumed; TRAINER_SHOTS glyphs of each of
@@ -5031,6 +5050,9 @@ def phase_lm_train(dev, smi: str, seed: int = 26) -> dict:
 MESH_TIMEOUT = 600  # s: the join of the mesh phase's ranks
 MESH_LM_LAYERS, MESH_LM_GEN, MESH_LM_SEQ = 2, 32, 256
 MESH_TICK_ROUNDS = 4  # alternated timings of the mesh and the bare tick
+MESH_SPEC_K, MESH_SPEC_GEN = 4, 16  # speculation over the mesh LM service
+MESH_TRAIN_STEPS = 3  # olmo-1b at full width, params placed, vs unsharded
+MESH_DECODE_LANES, MESH_DECODE_STEPS, MESH_DECODE_CAP = 8, 16, 64
 
 
 def mesh_rows(tree, axes=None) -> set:
@@ -5203,6 +5225,7 @@ def mesh_lm(rank, world, data, dev, seed) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.models import build_bundle
     from repro_torch.sessions import LMSessionService
+    from repro_torch.sessions.spec import SpeculativeDecoder, ngram_drafter
 
     cfg = get_config("olmo-1b").replace(n_layers=MESH_LM_LAYERS)
     bundle = build_bundle(cfg, dev)
@@ -5241,6 +5264,193 @@ def mesh_lm(rank, world, data, dev, seed) -> dict:
         if toks != want:
             raise AssertionError("mesh: the sharded LM service differs from "
                                  "the unsharded one")
+
+    def speculate(mesh):
+        s = svc if mesh is not None else run(None)[0]
+        sp = SpeculativeDecoder(s, ngram_drafter(), k=MESH_SPEC_K,
+                                verify="scan")
+        sids = sorted(s.sessions)
+        got = sp.decode({i: MESH_SPEC_GEN for i in sids})
+        return [got[i] for i in sids], sp.accepted, sp.drafted
+
+    spec = speculate(data)
+    if spec != speculate(None):
+        raise AssertionError("mesh: speculation over the mesh service "
+                             "differs from the unsharded decoder's")
+    out.update(spec_tokens=sum(len(t) for t in spec[0]),
+               spec_accepted=spec[1], spec_drafted=spec[2])
+    dist.barrier()
+    return out
+
+
+def mesh_placed(world, mesh, dev, seed) -> dict:
+    """olmo-1b at full width and depth with its parameters placed on
+    ``mesh``: the Trainer's step on params and AdamW state placed by
+    param_pspecs / train_state_pspecs, the batch by batch_pspecs, under
+    shard_ctx, against the unsharded step (the two runs one after the
+    other, the first freed: a step peaks at ~46 GB); the launcher's
+    ``--mesh 1x1`` against the same call without it; decode_fn on placed
+    params and a placed cache against the replicated twin.  Bit for bit
+    on a world of one; with more ranks the products run at other M, so
+    the losses, params and logits are held at the LM train tolerance of
+    PERF.md section 2 instead."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.specs import (
+        batch_pspecs,
+        cache_pspecs,
+        named,
+        place_tree,
+        train_state_pspecs,
+    )
+    from repro_torch.models import build_bundle
+    from repro_torch.sharding.ctx import shard_ctx
+    from repro_torch.sharding.rules import (
+        DEFAULT_RULES,
+        param_pspecs,
+        resolve_rules,
+    )
+    from repro_torch.training import TrainState, make_train_step
+    from repro_torch.training.optim import adamw
+    from repro_torch.utils.hlo import CollectiveRecorder, collective_bytes
+    from repro_torch.utils.trees import tree_leaves
+
+    exact = world == 1
+    whole = lambda t: t.full_tensor() if hasattr(t, "full_tensor") else t
+
+    def same(what, got, want) -> None:
+        got, want = whole(got), whole(want)
+        if exact and torch.equal(got, want):
+            return
+        scale = max(1.0, float(want.float().abs().max()))
+        if exact or not torch.allclose(got.float(), want.float(),
+                                       rtol=5e-2, atol=5e-2 * scale):
+            err = float((got.float() - want.float()).abs().max())
+            raise AssertionError(f"mesh placed olmo-1b: {what} differs from "
+                                 f"the unsharded twin by {err:.3g}")
+
+    cfg = get_config("olmo-1b")
+    b = build_bundle(cfg, dev)
+    pspecs = param_pspecs(b.param_defs, resolve_rules(DEFAULT_RULES, mesh),
+                          mesh)
+    opt = adamw(3e-4)
+    step = make_train_step(b.loss_fn, opt)
+    data = lm_copy_data(cfg.vocab_size, LMT_BATCH, LMT_SEQ, dev)
+    batches = [data(i) for i in range(MESH_TRAIN_STEPS)]
+    out = {}
+
+    def train(placed: bool):
+        params = b.init(torch.Generator(device=dev).manual_seed(seed))
+        state = TrainState(params, opt[0](params), {}, {},
+                           torch.zeros((), dtype=torch.int32, device=dev))
+        del params
+        ctx, bs = contextlib.nullcontext(), batches
+        if placed:
+            state = place_tree(named(mesh, train_state_pspecs(
+                pspecs, state.opt_state)), state)
+            bs = [place_tree(named(mesh, batch_pspecs(cfg, x, mesh)), x)
+                  for x in batches]
+            ctx = shard_ctx(mesh, DEFAULT_RULES)
+        losses, times, rec = [], [], CollectiveRecorder()
+        with ctx:
+            for i, batch in enumerate(bs):
+                a = torch.cuda.Event(enable_timing=True)
+                z = torch.cuda.Event(enable_timing=True)
+                with rec if i == 0 else contextlib.nullcontext():
+                    a.record()
+                    state, m = step(state, batch)
+                    z.record()
+                z.synchronize()
+                losses.append(whole(m["loss"]).float().cpu())
+                if i:  # the first step records the collectives
+                    times.append(a.elapsed_time(z))
+            # where the step's time goes: device busy against wall
+            prof = profile_tick(lambda: step(state, bs[0]), ticks=1,
+                                top=5, name="mesh " + ("placed" if placed
+                                                       else "unsharded")
+                                + " olmo-1b train step")
+        return [whole(p) for p in tree_leaves(state.params)], losses, \
+            statistics.median(times), collective_bytes(rec.records), prof
+
+    t0 = time.perf_counter()
+    want_p, want_l, plain_ms, _, plain_prof = train(False)
+    torch.cuda.empty_cache()
+    got_p, got_l, placed_ms, coll, placed_prof = train(True)
+    for i, (g, w) in enumerate(zip(got_l, want_l)):
+        same(f"step {i} loss", g, w)
+    for i, (g, w) in enumerate(zip(got_p, want_p)):
+        same(f"param {i} after {MESH_TRAIN_STEPS} steps", g, w)
+    del got_p, want_p
+    torch.cuda.empty_cache()
+    out.update(train_s=time.perf_counter() - t0, placed_ms=placed_ms,
+               plain_ms=plain_ms, collectives=coll, placed_prof=placed_prof,
+               plain_prof=plain_prof,
+               losses=[float(x) for x in got_l])
+
+    # ---- the launcher, --mesh 1x1 against no mesh ----
+    t0 = time.perf_counter()
+    argv = ["--arch", "olmo-1b", "--steps", str(MESH_TRAIN_STEPS),
+            "--batch", str(LMT_BATCH), "--seq", str(LMT_SEQ), "--device",
+            dev.type]
+    runs = []
+    for extra in (["--mesh", f"{world}x1"], []):
+        st, hist = launch_train.main(argv + extra)
+        runs.append(([torch.tensor(h["loss"]) for h in hist],
+                     [whole(p) for p in tree_leaves(st.params)]))
+        del st
+        torch.cuda.empty_cache()
+    (mesh_l, mesh_p), (bare_l, bare_p) = runs
+    for i, (g, w) in enumerate(zip(mesh_l, bare_l)):
+        same(f"launcher logged loss {i}", g, w)
+    for i, (g, w) in enumerate(zip(mesh_p, bare_p)):
+        same(f"launcher param {i}", g, w)
+    out.update(launch_s=time.perf_counter() - t0,
+               launch_losses=[float(x) for x in mesh_l])
+    del runs, mesh_p, bare_p
+    torch.cuda.empty_cache()
+
+    # ---- decode_fn on placed params and cache, against the replicated ----
+    t0 = time.perf_counter()
+    params = b.init(torch.Generator(device=dev).manual_seed(seed + 1))
+    rng = np.random.default_rng(seed)
+    first = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+        MESH_DECODE_LANES, 1)).astype(np.int32)).to(dev)
+
+    def decode(placed: bool):
+        p, ctx = params, contextlib.nullcontext()
+        cache = b.empty_cache(MESH_DECODE_LANES, MESH_DECODE_CAP)
+        place = lambda specs, x: x
+        if placed:
+            place = lambda specs, x: place_tree(named(mesh, specs), x)
+            p = place(pspecs, params)
+            cache = place(cache_pspecs(cfg, cache, mesh), cache)
+            ctx = shard_ctx(mesh, DEFAULT_RULES)
+        tok, toks = first, []
+        with ctx, torch.no_grad():
+            for j in range(MESH_DECODE_STEPS):
+                batch = {"tokens": tok,
+                         "pos": torch.tensor(j, dtype=torch.int32,
+                                             device=dev)}
+                logits, cache = b.decode_fn(p, cache, place(
+                    batch_pspecs(cfg, batch, mesh), batch))
+                tok = whole(logits).argmax(-1).to(torch.int32)[:, None]
+                toks.append(tok.cpu())
+        return torch.cat(toks, 1), [whole(c) for c in tree_leaves(cache)]
+
+    want_t, want_c = decode(False)
+    got_t, got_c = decode(True)
+    if not torch.equal(got_t, want_t):
+        raise AssertionError("mesh placed olmo-1b decode: tokens differ "
+                             "from the replicated twin's")
+    for i, (g, w) in enumerate(zip(got_c, want_c)):
+        same(f"decode cache leaf {i}", g, w)
+    out.update(decode_s=time.perf_counter() - t0,
+               decode_tokens=int(got_t.numel()))
+    del params, got_c, want_c
+    torch.cuda.empty_cache()
     dist.barrier()
     return out
 
@@ -5277,6 +5487,11 @@ def mesh_rank(rank: int, world: int, rdv: str, out: str, seed: int,
         t0 = time.perf_counter()
         res.update(mesh_lm(rank, world, data, dev, seed + 1))
         res["lm_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        zero_launch_counts()
+        res["placed"] = mesh_placed(world, data, dev, seed + 2)
+        res["placed"]["launches"] = lm_launch_counts()
+        res["placed_s"] = time.perf_counter() - t0
         every = [None] * world
         dist.all_gather_object(every, res)
         if rank == 0:
@@ -5331,12 +5546,51 @@ def phase_mesh(dev, smi: str, seed: int = 28) -> dict:
         f"{LM_SLOTS} lanes over data, {r0['lm_tokens']} greedy tokens bit "
         "for bit equal to the unsharded service; the cache still sharded "
         "after the waves; paged=True refused")
+    log(f"mesh speculation over the olmo-1b mesh service (scan, K="
+        f"{MESH_SPEC_K}, n-gram): {r0['spec_tokens']} tokens, "
+        f"{r0['spec_accepted']} of {r0['spec_drafted']} drafts accepted, "
+        "bit for bit equal to the unsharded decoder's")
+    pl = r0["placed"]
+    log(f"mesh placed olmo-1b (full: 16 layers, d 2048, vocab 50,304; "
+        f"params and AdamW state by param_pspecs / train_state_pspecs, "
+        f"lm_batch {LMT_BATCH} x {LMT_SEQ} by batch_pspecs, shard_ctx): "
+        f"{MESH_TRAIN_STEPS} steps, loss "
+        + ", ".join(f"{x:.6f}" for x in pl["losses"])
+        + ", every loss and param "
+        + ("bit for bit" if world == 1 else "within the LM tolerance")
+        + f" against the unsharded trainer's; launcher --mesh {world}x1 "
+        f"losses " + ", ".join(f"{x:.6f}" for x in pl["launch_losses"])
+        + " equal to the call without --mesh; decode_fn on placed params "
+        f"and cache: {pl['decode_tokens']} greedy tokens at "
+        f"{MESH_DECODE_LANES} lanes and every cache leaf equal to the "
+        f"replicated twin's; port kernel launches {pl['launches']}; "
+        f"one step's collectives {pl['collectives']['by_type']} "
+        f"({pl['collectives']['count']} ops, "
+        f"{pl['collectives']['total']} bytes); seconds: train "
+        f"{pl['train_s']:.1f}, launcher {pl['launch_s']:.1f}, decode "
+        f"{pl['decode_s']:.1f}")
+    log(f"timing mesh placed olmo-1b train step (full width and depth, "
+        f"{LMT_BATCH} x {LMT_SEQ}, AdamW; CUDA events, p50 of steps 2-"
+        f"{MESH_TRAIN_STEPS}): placed ms={pl['placed_ms']:.2f}; unsharded "
+        f"ms={pl['plain_ms']:.2f} [{smi}]")
+    for tag in ("placed", "plain"):
+        p = pl[f"{tag}_prof"]
+        log(f"profile mesh {tag} olmo-1b train step (one profiled step): "
+            f"wall_ms={p['wall_ms']:.2f} device_busy_ms={p['busy_ms']:.2f} "
+            f"host_only_ms={p['wall_ms'] - p['busy_ms']:.2f} launches="
+            f"{p['launches']:.0f} [{smi}]")
+    if any(pl["launches"].values()):
+        raise AssertionError(f"mesh placed olmo-1b launched a port kernel: "
+                             f"{pl['launches']}")
     log(f"timing mesh tick ({N_SLOTS}x{T_CHUNK} samples, end to end, "
         f"{world} rank(s), median of {MESH_TICK_ROUNDS} medians alternated "
         f"with the bare service's): ms={r0['tick_ms']:.4f}; bare service "
         f"ms={r0['bare_tick_ms']:.4f} [{smi}]")
     return {"launches": sum(r["launches"] for r in ranks), "world": world,
-            "tick_ms": r0["tick_ms"], "bare_tick_ms": r0["bare_tick_ms"]}
+            "tick_ms": r0["tick_ms"], "bare_tick_ms": r0["bare_tick_ms"],
+            "placed_ms": pl["placed_ms"], "plain_ms": pl["plain_ms"],
+            "placed_prof": pl["placed_prof"], "plain_prof": pl["plain_prof"],
+            "placed_s": r0["placed_s"]}
 
 
 EMPTY_KERNEL = r"""

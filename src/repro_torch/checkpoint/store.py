@@ -325,7 +325,15 @@ class AsyncCheckpointer:
         self._thread = None
 
     def save_async(self, step: int, tree):
-        snapshot = _map_leaves(lambda _, v: _host(v), tree)
+        """Snapshot ``tree`` (every DTensor gathered whole, on every rank
+        of its mesh) and write it in the background: on a mesh of more
+        than one rank only its first rank writes."""
+        leaves, mesh = _gathered(tree)
+        if mesh is not None and mesh.size() > 1 \
+                and dist.get_rank() != int(mesh.mesh.flatten()[0]):
+            return
+        whole = dict(leaves)
+        snapshot = _map_leaves(lambda k, _: _host(whole[k]), tree)
         self.wait()
         self._thread = threading.Thread(
             target=self._write, args=(step, snapshot), daemon=True)

@@ -105,6 +105,12 @@ def named(mesh, pspec_tree):
     return map_specs(lambda s: NamedSharding(mesh, s), pspec_tree)
 
 
+def place_tree(shardings, tree):
+    """Each leaf of ``tree`` (the same on every rank) placed by its
+    ``NamedSharding`` in ``shardings`` (a tree of the same structure)."""
+    return map_specs(lambda s, x: s.place(x), shardings, tree)
+
+
 def train_state_pspecs(param_pspecs_tree, opt_state_abstract) -> TrainState:
     """Optimizer state mirrors the param specs (mu/nu per leaf)."""
     return TrainState(

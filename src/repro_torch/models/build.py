@@ -64,7 +64,7 @@ from repro_torch.configs.shapes import ENCDEC_ENC_LEN, SHAPES
 from repro_torch.kernels.dispatch import require_device
 from repro_torch.models import tcn as tcn_mod
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.layers import apply_norm, layernorm, rope_angles
+from repro_torch.models.layers import apply_norm, layernorm
 from repro_torch.models.params import ParamDef, init_params
 from repro_torch.models.rwkv import (
     rwkv_empty_cache,
@@ -76,6 +76,7 @@ from repro_torch.models.ssm import (
     mamba_layer,
     mamba_param_defs,
 )
+from repro_torch.sharding.placed import like, mesh_of
 from repro_torch.models.transformer import (
     act_dtype,
     backbone,
@@ -88,6 +89,7 @@ from repro_torch.models.transformer import (
     logits_last,
     model_param_defs,
     norm_param_defs,
+    rope_tables,
     run_encoder,
     stack_defs,
     stack_sizes,
@@ -259,6 +261,18 @@ def make_cache_specs(cfg: ArchConfig, B: int, S: int,
     return make_empty_cache(cfg, B, S, dtype, "meta")
 
 
+def placed_like(cfg, cache, x):
+    """A cache a step built for itself, laid out by ``cache_pspecs`` on
+    ``x``'s mesh when ``x`` is a DTensor (each rank keeps its block of
+    the zeros), else as it is."""
+    mesh = mesh_of(x)
+    if mesh is None:
+        return cache
+    from repro_torch.launch.specs import cache_pspecs, named, place_tree
+
+    return place_tree(named(mesh, cache_pspecs(cfg, cache, mesh)), cache)
+
+
 def _as_pos(pos, dev):
     """A cached step's position as a tensor (as the reference's traced
     ``pos``, so ``attention`` never takes the prefill-only chunked path)."""
@@ -278,8 +292,8 @@ def _lm_inputs(params, cfg, batch, remat: bool = False):
     if cfg.family == "vlm":
         patches = batch["patches"]
         x = torch.cat([patches.to(x.dtype), x], dim=1)
-        pad = torch.full(patches.shape[:2], -1, dtype=labels.dtype,
-                         device=labels.device)
+        pad = like(torch.full(patches.shape[:2], -1, dtype=labels.dtype,
+                              device=labels.device), labels)
         labels = torch.cat([pad, labels], dim=1)
     elif cfg.family == "audio":
         enc_h = run_encoder(params, cfg, batch["frames"], remat=remat)
@@ -311,6 +325,7 @@ def build_lm_bundle(cfg: ArchConfig, device="cuda") -> Bundle:
             c["cross"] = _kv_cache(cfg, cfg.n_layers, B, enc_h.shape[1], adt,
                                    dev)
             cache = {"self": c}
+        cache = placed_like(cfg, cache, x)
         h, _ = backbone(params, cfg, x, 0, cache, enc_h)
         return logits_last(params, cfg, h), cache
 
@@ -384,6 +399,12 @@ def _rwkv_forward(params, cfg, x, cache, *, remat: bool = False):
     return x, _stacked(new)
 
 
+def _rwkv_zero(cfg, x, dev) -> dict:
+    """A zero cache for ``x``'s lanes, placed on its mesh if it has one."""
+    return placed_like(cfg, rwkv_empty_cache(cfg, x.shape[0], x.dtype, dev),
+                       x)
+
+
 def build_rwkv_bundle(cfg: ArchConfig, device="cuda") -> Bundle:
     dev = require_device(device)
     adt = act_dtype(cfg)
@@ -391,14 +412,14 @@ def build_rwkv_bundle(cfg: ArchConfig, device="cuda") -> Bundle:
     def loss_fn(params, batch):
         x = embed_tokens(params, cfg, batch["tokens"])
         h, _ = _rwkv_forward(params, cfg, x,
-                             rwkv_empty_cache(cfg, x.shape[0], x.dtype, dev),
+                             _rwkv_zero(cfg, x, dev),
                              remat=True)
         return chunked_cross_entropy(h, params["lm_head"], batch["labels"],
                                      cfg.logit_chunk)
 
     def prefill_fn(params, batch):
         x = embed_tokens(params, cfg, batch["tokens"])
-        cache = rwkv_empty_cache(cfg, x.shape[0], x.dtype, dev)
+        cache = _rwkv_zero(cfg, x, dev)
         h, cache = _rwkv_forward(params, cfg, x, cache)
         return logits_last(params, cfg, h), cache
 
@@ -417,7 +438,7 @@ def build_rwkv_bundle(cfg: ArchConfig, device="cuda") -> Bundle:
     def embed_fn(params, batch):
         x = embed_tokens(params, cfg, batch["tokens"])
         h, _ = _rwkv_forward(params, cfg, x,
-                             rwkv_empty_cache(cfg, x.shape[0], x.dtype, dev))
+                             _rwkv_zero(cfg, x, dev))
         return h.mean(dim=1)
 
     return Bundle(
@@ -456,15 +477,11 @@ def _zamba_forward(params, cfg, x, cache, pos, *, remat: bool = False):
     call): each Mamba layer and each application of the shared block
     checkpointed as a unit, nothing but its inputs kept."""
     B, S, _ = x.shape
-    ar = torch.arange(S, device=x.device)
-    positions = ar + (pos.reshape(-1, 1) if isinstance(pos, torch.Tensor)
-                      and pos.dim() else pos)
-    rope = rope_angles(positions, int(cfg.dh * cfg.rotary_frac),
-                       cfg.rope_theta)
+    rope = rope_tables(cfg, S, pos, cfg.dh, x)
     L, E = cfg.n_layers, cfg.attn_every
     layers = _layer_list(params["layers"])
-    mcache = mamba_empty_cache(cfg, L, B, x.dtype, x.device) \
-        if cache is None else cache["mamba"]
+    mcache = cache["mamba"] if cache is not None else placed_like(
+        cfg, mamba_empty_cache(cfg, L, B, x.dtype, x.device), x)
     def abody(x, ac):
         return layer_fwd(params["shared_attn"], cfg, x, rope, ac, pos)[0]
 
@@ -499,7 +516,8 @@ def build_zamba_bundle(cfg: ArchConfig, device="cuda") -> Bundle:
 
     def prefill_fn(params, batch):
         x = embed_tokens(params, cfg, batch["tokens"])
-        cache = make_empty_cache(cfg, x.shape[0], x.shape[1], adt, dev)
+        cache = placed_like(
+            cfg, make_empty_cache(cfg, x.shape[0], x.shape[1], adt, dev), x)
         h, cache = _zamba_forward(params, cfg, x, cache, 0)
         return logits_last(params, cfg, h), cache
 

@@ -33,6 +33,17 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding.ctx import constrain
+from repro_torch.sharding.placed import (
+    is_dt,
+    lane_layout,
+    lane_local,
+    linear,
+    local_apply,
+    mesh_of,
+    use,
+)
+
 NEG_INF = -1e30
 
 
@@ -50,7 +61,11 @@ def _f32_sum(a, b=None, *, keep_last: bool = False) -> torch.Tensor:
     fp32, over the last axis (``keep_last`` False) or over every axis but
     the last (a parameter gradient)."""
     p = a.float() if b is None else a.float() * b.float()
-    return p.reshape(-1, p.shape[-1]).sum(0) if keep_last else p.sum(-1)
+    if not keep_last:
+        return p.sum(-1)
+    if is_dt(p):  # a row fold would merge sharded dims
+        return p.sum(dim=tuple(range(p.dim() - 1)))
+    return p.reshape(-1, p.shape[-1]).sum(0)
 
 
 def _rms_fwd(x, w, eps):
@@ -134,6 +149,7 @@ def _differentiated(*ts) -> bool:
 
 
 def rmsnorm(x, w, eps: float = 1e-6):
+    w = use(w)
     if _differentiated(x, w):
         return _RMSNorm.apply(x, w, eps)
     return _rms_fwd(x, w, eps)[0]
@@ -142,6 +158,7 @@ def rmsnorm(x, w, eps: float = 1e-6):
 def layernorm(x, w, b, eps: float = 1e-5):
     """LayerNorm with fp32 statistics.  ``w``/``b`` None is the
     non-parametric form (OLMo): the identity affine is skipped."""
+    w, b = (None if t is None else use(t) for t in (w, b))
     if _differentiated(x, w, b):
         return _LayerNorm.apply(x, w, b, eps)
     return _ln_fwd(x, w, b, eps)[0]
@@ -248,11 +265,18 @@ def attention_chunked(q, k, v, *, causal: bool, kv_chunk: int = 1024,
     qg = _group_q(q, n_kv).float()
     g = hq // n_kv
     qpos = torch.arange(sq, device=q.device)[:, None]
-    m = torch.full((b, n_kv, g, sq), NEG_INF, dtype=torch.float32,
-                   device=q.device)
-    l = torch.zeros((b, n_kv, g, sq), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((b, n_kv, g, sq, dv), dtype=torch.float32,
-                      device=q.device)
+    # the online-softmax carries in the layout of the heads (on a mesh
+    # the core runs on each rank's block of lanes and heads, so they are
+    # born there: ``attention``)
+    m = constrain(torch.full((b, n_kv, g, sq), NEG_INF, dtype=torch.float32,
+                             device=q.device),
+                  ("batch", "heads_act", None, None))
+    l = constrain(torch.zeros((b, n_kv, g, sq), dtype=torch.float32,
+                              device=q.device),
+                  ("batch", "heads_act", None, None))
+    acc = constrain(torch.zeros((b, n_kv, g, sq, dv), dtype=torch.float32,
+                                device=q.device),
+                    ("batch", "heads_act", None, None, None))
     for idx in range(n_chunks):
         kb = k[:, idx * kv_chunk:(idx + 1) * kv_chunk]
         vb = v[:, idx * kv_chunk:(idx + 1) * kv_chunk]
@@ -279,7 +303,25 @@ def attention(q, k, v, *, causal: bool, q_offset=0, kv_len=None,
     ``chunked_threshold`` keys takes the chunked path when no cache-length
     mask is needed (no cache, or a prefill: ``q_offset == 0`` and
     ``kv_len == Sq`` as Python ints); everything else, decode included,
-    the dense path."""
+    the dense path.
+
+    On a mesh (DTensor q, k, v) the core runs on each rank's block: its
+    lanes, and its heads where every head count divides the ``model``
+    axis (``placed.lane_layout``); K/V sharded along the sequence (a
+    context-parallel cache) are gathered first.  Each lane and head is
+    computed as on one card."""
+    mesh = mesh_of(q, k, v)
+    if mesh is not None:
+        lay = lane_layout(mesh, q, head_dim=2,
+                          heads=(q.shape[2], k.shape[2]))
+        q_offset, kv_len = (lane_local(t, mesh, lay)
+                            for t in (q_offset, kv_len))
+        return local_apply(
+            lambda q_, k_, v_: attention(
+                q_, k_, v_, causal=causal, q_offset=q_offset, kv_len=kv_len,
+                softmax_scale=softmax_scale,
+                chunked_threshold=chunked_threshold),
+            mesh, (q, k, v), (lay, lay, lay), lay)
     prefill_like = (isinstance(q_offset, int) and q_offset == 0
                     and isinstance(kv_len, int) and kv_len == q.shape[1])
     long = q.shape[1] > 1 and k.shape[1] >= chunked_threshold
@@ -298,18 +340,20 @@ def attention(q, k, v, *, causal: bool, q_offset=0, kv_len=None,
 # ---------------------------------------------------------------------------
 
 def mlp_swiglu(p, x):
-    h = x @ p["wg"].to(x.dtype)
-    u = x @ p["wi"].to(x.dtype)
-    return (F.silu(h) * u) @ p["wd"].to(x.dtype)
+    h = linear(x, use(p["wg"], x.dtype))
+    u = linear(x, use(p["wi"], x.dtype))
+    h = constrain(F.silu(h) * u, ("batch", None, "ffn"))
+    return linear(h, use(p["wd"], x.dtype))
 
 
 def _mlp_act(p, x, act):
-    h = x @ p["wi"].to(x.dtype)
+    h = linear(x, use(p["wi"], x.dtype))
     if "bi" in p:
-        h = h + p["bi"].to(x.dtype)
-    h = act(h) @ p["wd"].to(x.dtype)
+        h = h + use(p["bi"], x.dtype)
+    h = constrain(act(h), ("batch", None, "ffn"))
+    h = linear(h, use(p["wd"], x.dtype))
     if "bd" in p:
-        h = h + p["bd"].to(x.dtype)
+        h = h + use(p["bd"], x.dtype)
     return h
 
 

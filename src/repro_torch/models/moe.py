@@ -35,6 +35,14 @@ import torch.nn.functional as F
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import mlp_swiglu
 from repro_torch.models.params import ParamDef
+from repro_torch.sharding.ctx import constrain
+from repro_torch.sharding.placed import (
+    lane_layout,
+    linear,
+    local_apply,
+    mesh_of,
+    use,
+)
 
 
 def moe_param_defs(cfg: ArchConfig) -> dict:
@@ -66,10 +74,14 @@ def expert_capacity(n_tokens: int, cfg: ArchConfig) -> int:
 def route(p: dict, cfg: ArchConfig, x):
     """The fp32 router: (probs (B, S, E), top_p (B, S, K) renormalized,
     top_e (B, S, K) int64), top-k ties to the lower expert index."""
-    logits = x.float() @ p["router"].float()
+    return _top_k(linear(x.float(), use(p["router"], torch.float32)),
+                  cfg.moe_topk)
+
+
+def _top_k(logits, K: int):
     probs = torch.softmax(logits, dim=-1)
     top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
-    top_p, top_e = top_p[..., :cfg.moe_topk], top_e[..., :cfg.moe_topk]
+    top_p, top_e = top_p[..., :K], top_e[..., :K]
     top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
     return probs, top_p, top_e
 
@@ -90,24 +102,16 @@ def positions_in_expert(flat_e, n_experts: int):
     return torch.zeros_like(flat_e).scatter_(1, order, pos_sorted)
 
 
-def moe_ffn(p: dict, cfg: ArchConfig, x):
-    """x (B, S, D) -> (y (B, S, D), {"moe_aux", "moe_dropped"}): the
-    Switch-style load-balancing loss and the share of (token, choice)
-    pairs past capacity, both fp32 0-d tensors."""
+def _route_dispatch(logits, x, E: int, K: int, C: int):
+    """Per sequence: the routing, each (token, choice)'s buffer row and
+    the scattered expert buffers.  Returns (probs, top_p, the (B, S, E)
+    one-hot counts of the choices, keep, dest, xbuf (B, E, C, D))."""
     B, S, D = x.shape
-    E, K = cfg.n_experts, cfg.moe_topk
-    C = expert_capacity(S, cfg)
-
-    probs, top_p, top_e = route(p, cfg, x)
-    me = probs.mean(dim=(0, 1))
-    fe = F.one_hot(top_e, E).float().sum(dim=2).mean(dim=(0, 1)) / K
-    aux = E * torch.sum(fe * me)
-
+    probs, top_p, top_e = _top_k(logits, K)
+    hot = F.one_hot(top_e, E).float().sum(dim=2)
     flat_e = top_e.reshape(B, S * K)
     pos = positions_in_expert(flat_e, E)
     keep = pos < C
-    dropped = 1.0 - keep.float().mean()
-
     # dispatch: kept pairs to their unique (expert, row), dropped ones to
     # the trash row E*C
     dest = torch.where(keep, flat_e * C + pos, E * C)
@@ -117,21 +121,86 @@ def moe_ffn(p: dict, cfg: ArchConfig, x):
     x_rep = x[:, :, None].expand(B, S, K, D).reshape(B, S * K, D)
     xbuf = torch.zeros((B, E * C + 1, D), dtype=x.dtype, device=x.device)
     xbuf.scatter_(1, dest[..., None].expand(B, S * K, D), x_rep)
-    xbuf = xbuf[:, :E * C].reshape(B, E, C, D).transpose(0, 1) \
-        .reshape(E, B * C, D)
+    return probs, top_p, hot, keep, dest, xbuf[:, :E * C].reshape(B, E, C, D)
 
-    # grouped expert SwiGLU: one batched product per weight over E
-    g = F.silu(torch.bmm(xbuf, p["wg"].to(x.dtype)))
-    u = torch.bmm(xbuf, p["wi"].to(x.dtype))
-    ybuf = torch.bmm(g * u, p["wd"].to(x.dtype))  # (E, B*C, D)
-    ybuf = ybuf.reshape(E, B, C, D).transpose(0, 1).reshape(B, E * C, D)
 
-    # combine: each pair's expert output, weighted, summed over K
+def _gate_up(xbuf, wg, wi):
+    """The grouped expert SwiGLU's first half, one batched product per
+    weight over the experts: (B, E, C, D) -> (B, E, C, F)."""
+    B, E, C, D = xbuf.shape
+    xe = xbuf.transpose(0, 1).reshape(E, B * C, D)
+    h = F.silu(torch.bmm(xe, wg)) * torch.bmm(xe, wi)
+    return h.reshape(E, B, C, -1).transpose(0, 1)
+
+
+def _down(h, wd):
+    B, E, C, Fe = h.shape
+    y = torch.bmm(h.transpose(0, 1).reshape(E, B * C, Fe), wd)
+    return y.reshape(E, B, C, -1).transpose(0, 1)
+
+
+def _combine(ybuf, keep, dest, top_p):
+    """Each pair's expert output, weighted, summed over its K choices:
+    (B, E, C, D) buffers -> (B, S, D)."""
+    B, E, C, D = ybuf.shape
+    n = keep.shape[1]
+    K = top_p.shape[-1]
+    ybuf = ybuf.reshape(B, E * C, D)
     safe = torch.where(keep, dest, 0)
-    y_rep = torch.gather(ybuf, 1, safe[..., None].expand(B, S * K, D))
+    y_rep = torch.gather(ybuf, 1, safe[..., None].expand(B, n, D))
     y_rep = torch.where(keep[..., None], y_rep,
-                        torch.zeros((), dtype=x.dtype, device=x.device))
-    y = (y_rep.reshape(B, S, K, D) * top_p[..., None].to(x.dtype)).sum(dim=2)
+                        torch.zeros((), dtype=ybuf.dtype,
+                                    device=ybuf.device))
+    return (y_rep.reshape(B, n // K, K, D)
+            * top_p[..., None].to(ybuf.dtype)).sum(dim=2)
+
+
+def _experts(fn, mesh, bufs, weights):
+    """``fn`` over expert buffers (B, E, C, ·) and expert weights: on a
+    mesh each rank takes its lanes' rows of its experts (the
+    ``("batch", "experts")`` layout) against its experts' weights."""
+    if mesh is None:
+        return fn(*bufs, *weights)
+    pl = list(bufs[0].placements)
+    return local_apply(fn, mesh, (*bufs, *weights),
+                       (pl,) * len(bufs) + tuple(list(w.placements)
+                                                 for w in weights), pl)
+
+
+def moe_ffn(p: dict, cfg: ArchConfig, x):
+    """x (B, S, D) -> (y (B, S, D), {"moe_aux", "moe_dropped"}): the
+    Switch-style load-balancing loss and the share of (token, choice)
+    pairs past capacity, both fp32 0-d tensors.  On a mesh the routing,
+    the dispatch and the combine run on each rank's lanes (per sequence,
+    the reference's drop mask), the expert products on its experts."""
+    B, S, D = x.shape
+    E, K = cfg.n_experts, cfg.moe_topk
+    C = expert_capacity(S, cfg)
+    logits = linear(x.float(), use(p["router"], torch.float32))
+    mesh = mesh_of(logits)
+    if mesh is None:
+        probs, top_p, hot, keep, dest, xbuf = _route_dispatch(
+            logits, x, E, K, C)
+    else:
+        lay = lane_layout(mesh, x)
+        probs, top_p, hot, keep, dest, xbuf = local_apply(
+            lambda lg, xx: _route_dispatch(lg, xx, E, K, C), mesh,
+            (logits, x), (lay, lay), (lay,) * 6)
+    me = probs.mean(dim=(0, 1))
+    fe = hot.mean(dim=(0, 1)) / K
+    aux = E * torch.sum(fe * me)
+    dropped = 1.0 - keep.float().mean()
+
+    xbuf = constrain(xbuf, ("batch", "experts", None, None))
+    h = _experts(_gate_up, mesh, (xbuf,), (use(p["wg"], x.dtype),
+                                           use(p["wi"], x.dtype)))
+    h = constrain(h, ("batch", "experts", None, None))
+    ybuf = _experts(_down, mesh, (h,), (use(p["wd"], x.dtype),))
+    if mesh is None:
+        y = _combine(ybuf, keep, dest, top_p)
+    else:
+        y = local_apply(_combine, mesh, (ybuf, keep, dest, top_p),
+                        (lay,) * 4, lay)
 
     if cfg.n_shared_experts:
         y = y + mlp_swiglu(p["shared"], x)

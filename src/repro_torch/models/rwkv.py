@@ -31,6 +31,15 @@ import torch.nn.functional as F
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import layernorm
 from repro_torch.models.params import ParamDef
+from repro_torch.sharding.placed import (
+    lane_layout,
+    linear,
+    local_apply,
+    merge_heads,
+    mesh_of,
+    split_heads,
+    use,
+)
 
 CHUNK = 32
 GN_EPS = 64e-5
@@ -85,8 +94,9 @@ def _token_shift(x, x_prev):
 
 def _decay(p, xw):
     """Log-decay (<= 0) of w_t = exp(-exp(w0 + tanh(x @ A) @ B)), fp32."""
-    lora = xw @ p["wa"].to(xw.dtype)
-    logw = p["w0"].float() + (torch.tanh(lora) @ p["wb"].to(xw.dtype)).float()
+    lora = linear(xw, use(p["wa"], xw.dtype))
+    logw = use(p["w0"], torch.float32) \
+        + linear(torch.tanh(lora), use(p["wb"], xw.dtype)).float()
     return -torch.exp(logw)
 
 
@@ -145,6 +155,31 @@ def wkv_step(r, k, v, log_w, u, state):
     return y.to(r.dtype), new
 
 
+def _wkv_any(r, k, v, log_w, u, state):
+    """(B, S, H, Dh) in, the S == 1 step or the chunked form."""
+    if r.shape[1] == 1:
+        y, state = wkv_step(r[:, 0], k[:, 0], v[:, 0], log_w[:, 0], u, state)
+        return y[:, None], state
+    return wkv_chunked(r, k, v, log_w, u, state)
+
+
+def _wkv(r, k, v, log_w, u, state):
+    """The recurrence; on a mesh on each rank's lanes and heads (heads
+    over ``model`` when it divides them), each as on one card."""
+    mesh = mesh_of(r, state)
+    if mesh is None:
+        return _wkv_any(r, k, v, log_w, u, state)
+    from torch.distributed.tensor import Replicate, Shard
+
+    lay = lane_layout(mesh, r, head_dim=2, heads=(r.shape[2],))
+    heads = [Shard(q.dim - 2) if isinstance(q, Shard) and q.dim == 2
+             else Replicate() for q in lay]
+    st = [Shard(1) if isinstance(q, Shard) and q.dim == 2 else q
+          for q in lay]
+    return local_apply(_wkv_any, mesh, (r, k, v, log_w, u, state),
+                       (lay, lay, lay, lay, heads, st), (lay, st))
+
+
 def _group_norm(y, w, b, H):
     """Per-head LayerNorm of (B, T, H, Dh) (RWKV's ln_x), fp32, flattened
     to (B, T, H * Dh)."""
@@ -153,7 +188,8 @@ def _group_norm(y, w, b, H):
     mu = yf.mean(-1, keepdim=True)
     var = ((yf - mu) ** 2).mean(-1, keepdim=True)
     yn = (yf - mu) * torch.rsqrt(var + GN_EPS)
-    return yn.reshape(B, T, H * Dh) * w.float() + b.float()
+    return merge_heads(yn, B, T, H * Dh) * use(w, torch.float32) \
+        + use(b, torch.float32)
 
 
 def time_mix(p, cfg: ArchConfig, x, x_prev, state):
@@ -166,32 +202,27 @@ def time_mix(p, cfg: ArchConfig, x, x_prev, state):
     xs = _token_shift(x, x_prev)
 
     def lerp(m):
-        return x + (xs - x) * p[m].to(x.dtype)
+        return x + (xs - x) * use(p[m], x.dtype)
 
     xr, xk, xv, xg, xw = (lerp(m) for m in
                           ("mix_r", "mix_k", "mix_v", "mix_g", "mix_w"))
-    r = (xr @ p["wr"].to(x.dtype)).view(B, S, H, Dh)
-    k = (xk @ p["wk"].to(x.dtype)).view(B, S, H, Dh)
-    v = (xv @ p["wv"].to(x.dtype)).view(B, S, H, Dh)
-    g = F.silu(xg @ p["wg"].to(x.dtype))
-    log_w = _decay(p, xw).view(B, S, H, Dh)
-    u = p["u"].view(H, Dh)
-    if S == 1:
-        y, state = wkv_step(r[:, 0], k[:, 0], v[:, 0], log_w[:, 0], u, state)
-        y = y[:, None]
-    else:
-        y, state = wkv_chunked(r, k, v, log_w, u, state)
+    r = split_heads(linear(xr, use(p["wr"], x.dtype)), B, S, H, Dh)
+    k = split_heads(linear(xk, use(p["wk"], x.dtype)), B, S, H, Dh)
+    v = split_heads(linear(xv, use(p["wv"], x.dtype)), B, S, H, Dh)
+    g = F.silu(linear(xg, use(p["wg"], x.dtype)))
+    log_w = split_heads(_decay(p, xw), B, S, H, Dh)
+    y, state = _wkv(r, k, v, log_w, use(p["u"]).view(H, Dh), state)
     y = _group_norm(y, p["gn_w"], p["gn_b"], H).to(x.dtype) * g
-    return y @ p["wo"].to(x.dtype), (x[:, -1, :], state)
+    return linear(y, use(p["wo"], x.dtype)), (x[:, -1, :], state)
 
 
 def channel_mix(p, cfg: ArchConfig, x, x_prev):
     xs = _token_shift(x, x_prev)
-    xk = x + (xs - x) * p["mix_k"].to(x.dtype)
-    xr = x + (xs - x) * p["mix_r"].to(x.dtype)
-    k = torch.square(F.relu(xk @ p["wk"].to(x.dtype)))
-    kv = k @ p["wv"].to(x.dtype)
-    r = torch.sigmoid(xr @ p["wr"].to(x.dtype))
+    xk = x + (xs - x) * use(p["mix_k"], x.dtype)
+    xr = x + (xs - x) * use(p["mix_r"], x.dtype)
+    k = torch.square(F.relu(linear(xk, use(p["wk"], x.dtype))))
+    kv = linear(k, use(p["wv"], x.dtype))
+    r = torch.sigmoid(linear(xr, use(p["wr"], x.dtype)))
     return r * kv, x[:, -1, :]
 
 

@@ -22,6 +22,16 @@ import torch.nn.functional as F
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import rmsnorm
 from repro_torch.models.params import ParamDef
+from repro_torch.sharding.placed import (
+    lane_layout,
+    like,
+    linear,
+    local_apply,
+    merge_heads,
+    mesh_of,
+    split_heads,
+    use,
+)
 
 CHUNK = 64
 
@@ -60,14 +70,15 @@ def _causal_conv(x, w, b, ring=None):
     (y, the new ring: the last K-1 inputs)."""
     K = w.shape[0]
     if ring is None:
-        ring = torch.zeros((x.shape[0], K - 1, x.shape[2]), dtype=x.dtype,
-                           device=x.device)
+        ring = like(torch.zeros((x.shape[0], K - 1, x.shape[2]),
+                                dtype=x.dtype, device=x.device), x)
     xp = torch.cat([ring.to(x.dtype), x], dim=1)  # (B, S + K - 1, C)
     S = x.shape[1]
+    w = use(w, x.dtype)
     y = 0
     for i in range(K):
-        y = y + xp[:, i:i + S, :] * w[i].to(x.dtype)
-    y = y + b.to(x.dtype)
+        y = y + xp[:, i:i + S, :] * w[i]
+    y = y + use(b, x.dtype)
     return F.silu(y), xp[:, -(K - 1):, :]
 
 
@@ -124,29 +135,51 @@ def ssd_step(x, dt, A, B, C, state):
     return y.to(x.dtype), new
 
 
+def _ssd_any(x, dt, A, B, C, state):
+    """x (B, S, H, P) in, the S == 1 step or the chunked form."""
+    if x.shape[1] == 1:
+        y, state = ssd_step(x[:, 0], dt[:, 0], A, B[:, 0], C[:, 0], state)
+        return y[:, None], state
+    return ssd_chunked(x, dt, A, B, C, state)
+
+
+def _ssd(x, dt, A, B, C, state):
+    """The recurrence; on a mesh on each rank's lanes and heads (heads
+    over ``model`` when it divides them), each as on one card."""
+    mesh = mesh_of(x, state)
+    if mesh is None:
+        return _ssd_any(x, dt, A, B, C, state)
+    from torch.distributed.tensor import Replicate, Shard
+
+    lay = lane_layout(mesh, x, head_dim=2, heads=(x.shape[2],))
+    on = lambda d: [Shard(d) if isinstance(q, Shard) and q.dim == 2 else q
+                    for q in lay]
+    lanes = [q if isinstance(q, Shard) and q.dim == 0 else Replicate()
+             for q in lay]
+    heads = [Shard(0) if isinstance(q, Shard) and q.dim == 2
+             else Replicate() for q in lay]
+    return local_apply(_ssd_any, mesh, (x, dt, A, B, C, state),
+                       (lay, lay, heads, lanes, lanes, on(1)), (lay, on(1)))
+
+
 def mamba_layer(p, cfg: ArchConfig, x, cache):
     """Mamba2 block on x (B, S, D).  cache: this layer's {"conv" (B, K-1,
     conv_dim), "ssm" (B, H, N, P)}.  Returns (x + out, a new cache dict)."""
     B_, S, D = x.shape
     d_inner, H, N, P = _dims(cfg)
     h = rmsnorm(x, p["norm"]["w"])
-    zxbcdt = h @ p["in_proj"].to(x.dtype)
+    zxbcdt = linear(h, use(p["in_proj"], x.dtype))
     z, xbc, dt = torch.split(zxbcdt, [d_inner, d_inner + 2 * N, H], dim=-1)
     xbc, new_conv = _causal_conv(xbc, p["conv_w"], p["conv_b"], cache["conv"])
     xs, Bmat, Cmat = torch.split(xbc, [d_inner, N, N], dim=-1)
-    dt = F.softplus(dt.float() + p["dt_bias"].float())
-    A = -torch.exp(p["a_log"].float())
-    xh = xs.reshape(B_, S, H, P)
-    if S == 1:
-        y, new_ssm = ssd_step(xh[:, 0], dt[:, 0], A, Bmat[:, 0], Cmat[:, 0],
-                              cache["ssm"])
-        y = y[:, None]
-    else:
-        y, new_ssm = ssd_chunked(xh, dt, A, Bmat, Cmat, cache["ssm"])
-    y = y + p["d_skip"].to(x.dtype)[None, None, :, None] * xh
-    y = y.reshape(B_, S, d_inner)
+    dt = F.softplus(dt.float() + use(p["dt_bias"], torch.float32))
+    A = -torch.exp(use(p["a_log"], torch.float32))
+    xh = split_heads(xs, B_, S, H, P)
+    y, new_ssm = _ssd(xh, dt, A, Bmat, Cmat, cache["ssm"])
+    y = y + use(p["d_skip"], x.dtype)[None, None, :, None] * xh
+    y = merge_heads(y, B_, S, d_inner)
     y = rmsnorm(y * F.silu(z), p["out_norm"]["w"])
-    return x + y @ p["out_proj"].to(x.dtype), {"conv": new_conv,
+    return x + linear(y, use(p["out_proj"], x.dtype)), {"conv": new_conv,
                                                 "ssm": new_ssm}
 
 

@@ -73,6 +73,20 @@ from repro_torch.models.moe import moe_ffn, moe_param_defs
 from repro_torch.models.params import ParamDef, map_defs
 from repro_torch.models.rwkv import FP32_KEYS as RWKV_FP32
 from repro_torch.models.ssm import FP32_KEYS as SSM_FP32
+from repro_torch.sharding.ctx import constrain
+from repro_torch.sharding.placed import (
+    is_dt,
+    lane_layout,
+    lane_local,
+    like,
+    linear,
+    local_apply,
+    merge_heads,
+    mesh_of,
+    replicated,
+    split_heads,
+    use,
+)
 from repro_torch.utils.trees import tree_leaves, tree_map, tree_unflatten
 
 
@@ -243,6 +257,8 @@ def _write_rows(buf, new, pos):
     """Write ``new`` (B, S, ...) into the cache leaf ``buf`` (B, S_max, ...)
     at rows [pos, pos + S) of each lane, in place.  ``pos``: a Python int,
     or a tensor 0-d or (B,)."""
+    if is_dt(buf):
+        return _write_rows_placed(buf, new, pos)
     S, s_max = new.shape[1], buf.shape[1]
     new = new.to(buf.dtype)
     if isinstance(pos, int):
@@ -254,6 +270,37 @@ def _write_rows(buf, new, pos):
     rows = start[:, None] + torch.arange(S, device=buf.device)
     lanes = torch.arange(B, device=buf.device)[:, None].expand(B, S)
     buf.index_put_((lanes, rows), new)
+
+
+def _write_rows_placed(buf, new, pos):
+    """``_write_rows`` into a placed cache leaf: each rank writes its own
+    lanes' rows into its block.  Where the sequence is sharded (a
+    context-parallel cache, ``launch/specs.cache_pspecs``) a rank keeps
+    the rows that fall in its block and sends the others to a scratch
+    row."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.sharding import spmd
+
+    mesh, pl = buf.device_mesh, buf.placements
+    whole = [Replicate() if isinstance(q, Shard) and q.dim == 1 else q
+             for q in pl]
+    nl = new.to(buf.dtype).redistribute(mesh, whole).to_local()
+    bl = buf.to_local()
+    pos = lane_local(pos, mesh, pl)
+    lo, hi = spmd.block_range(mesh, pl, 1, buf.shape[1])
+    per = hi - lo
+    if per == buf.shape[1]:
+        return _write_rows(bl, nl, pos)
+    Bl, S = nl.shape[:2]
+    start = torch.clamp(torch.as_tensor(pos, device=bl.device).reshape(-1)
+                        .expand(Bl), 0, buf.shape[1] - S)
+    rows = start[:, None] + torch.arange(S, device=bl.device) - lo
+    rows = torch.where((rows >= 0) & (rows < per), rows, per)
+    lanes = torch.arange(Bl, device=bl.device)[:, None].expand(Bl, S)
+    tmp = torch.cat([bl, bl.new_zeros((Bl, 1) + tuple(bl.shape[2:]))], 1)
+    tmp.index_put_((lanes, rows), nl)
+    bl.copy_(tmp[:, :per])
 
 
 def gqa_attn(p, cfg: ArchConfig, x, rope_cs, cache, pos, *, causal=True,
@@ -269,24 +316,25 @@ def gqa_attn(p, cfg: ArchConfig, x, rope_cs, cache, pos, *, causal=True,
     """
     B, S, _ = x.shape
     H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
-    q = x @ p["wq"].to(x.dtype)
+    q = linear(x, use(p["wq"], x.dtype))
     if "bq" in p:
-        q = q + p["bq"].to(x.dtype)
-    q = q.view(B, S, H, Dh)
+        q = q + use(p["bq"], x.dtype)
+    q = split_heads(q, B, S, H, Dh)
     if rope_cs is not None:
         cos, sin = rope_cs
         q = apply_rope(q, cos, sin)
+    q = constrain(q, ("batch", None, "heads_act", None))
     kv_len, q_offset = None, 0
     if cross_cached:
         k, v = cache["k"], cache["v"]
     else:
         src = x if kv_x is None else kv_x
-        k = src @ p["wk"].to(x.dtype)
-        v = src @ p["wv"].to(x.dtype)
+        k = linear(src, use(p["wk"], x.dtype))
+        v = linear(src, use(p["wv"], x.dtype))
         if "bk" in p:
-            k = k + p["bk"].to(x.dtype)
-            v = v + p["bv"].to(x.dtype)
-        k, v = k.view(B, -1, Hkv, Dh), v.view(B, -1, Hkv, Dh)
+            k = k + use(p["bk"], x.dtype)
+            v = v + use(p["bv"], x.dtype)
+        k, v = split_heads(k, B, -1, Hkv, Dh), split_heads(v, B, -1, Hkv, Dh)
         if rope_cs is not None and kv_x is None:
             k = apply_rope(k, cos, sin)
         if kv_x is not None and cache is not None:
@@ -299,13 +347,18 @@ def gqa_attn(p, cfg: ArchConfig, x, rope_cs, cache, pos, *, causal=True,
             k, v = cache["k"], cache["v"]
             kv_len, q_offset = pos + S, pos
     if cfg.attn_kv_repeat and Hkv < H and S > 1:
-        # the reference repeats KV to full heads for multi-token calls (a
-        # sharding device there); decode (S == 1) attends grouped
+        # the reference repeats KV to full heads for multi-token calls (the
+        # sequence gathered first, then the heads sharded); decode (S ==
+        # 1) attends grouped
+        k = constrain(k, ("batch", None, None, None))
+        v = constrain(v, ("batch", None, None, None))
         k, v = repeat_heads(k, H // Hkv), repeat_heads(v, H // Hkv)
+        k = constrain(k, ("batch", None, "heads_act", None))
+        v = constrain(v, ("batch", None, "heads_act", None))
     out = attention(q, k, v, causal=causal and kv_x is None
                     and not cross_cached, q_offset=q_offset, kv_len=kv_len,
                     chunked_threshold=cfg.attn_chunk_threshold)
-    return out.reshape(B, S, H * Dh) @ p["wo"].to(x.dtype)
+    return linear(merge_heads(out, B, S, H * Dh), use(p["wo"], x.dtype))
 
 
 def repeat_heads(t, n: int):
@@ -338,9 +391,9 @@ def mla_attn(p, cfg: ArchConfig, x, rope_cs, cache, pos):
     dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
     dv, r = cfg.v_head_dim, cfg.kv_lora_rank
     cos, sin = rope_cs
-    q = (x @ p["wq"].to(x.dtype)).view(B, S, H, dn + dr)
+    q = split_heads(linear(x, use(p["wq"], x.dtype)), B, S, H, dn + dr)
     q_nope, q_rope = q[..., :dn], apply_rope(q[..., dn:], cos, sin)
-    dkv = x @ p["w_dkv"].to(x.dtype)
+    dkv = linear(x, use(p["w_dkv"], x.dtype))
     c_kv = rmsnorm(dkv[..., :r], p["kv_norm"])
     k_rope = apply_rope(dkv[..., None, r:], cos, sin)  # one shared head
     kv_len, q_offset = None, 0
@@ -349,7 +402,7 @@ def mla_attn(p, cfg: ArchConfig, x, rope_cs, cache, pos):
         _write_rows(cache["k_rope"], k_rope, pos)
         c_kv, k_rope = cache["c_kv"].to(x.dtype), cache["k_rope"].to(x.dtype)
         kv_len, q_offset = pos + S, pos
-    w_ukv = p["w_ukv"].to(x.dtype)
+    w_ukv = use(p["w_ukv"], x.dtype)
     if cfg.mla_absorb and S == 1 and cache is not None:
         w_ukv = w_ukv.view(r, H, dn + dv)
         w_uk, w_uv = w_ukv[..., :dn], w_ukv[..., dn:]
@@ -365,7 +418,7 @@ def mla_attn(p, cfg: ArchConfig, x, rope_cs, cache, pos):
         ctx = torch.einsum("bhsk,bkr->bshr", probs, c_kv)
         out = torch.einsum("bshr,rhd->bshd", ctx, w_uv)
     else:
-        ukv = (c_kv @ w_ukv).view(B, -1, H, dn + dv)
+        ukv = split_heads(linear(c_kv, w_ukv), B, -1, H, dn + dv)
         k_nope, v = ukv[..., :dn], ukv[..., dn:]
         k = torch.cat([k_nope, k_rope.expand(B, k_nope.shape[1], H, dr)],
                       dim=-1)
@@ -373,7 +426,7 @@ def mla_attn(p, cfg: ArchConfig, x, rope_cs, cache, pos):
                         causal=True, q_offset=q_offset, kv_len=kv_len,
                         softmax_scale=(dn + dr) ** -0.5,
                         chunked_threshold=cfg.attn_chunk_threshold)
-    return out.reshape(B, S, H * dv) @ p["wo"].to(x.dtype)
+    return linear(merge_heads(out, B, S, H * dv), use(p["wo"], x.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -387,6 +440,7 @@ def layer_fwd(p, cfg: ArchConfig, x, rope_cs, cache, pos, *,
     the MLP): over ``enc_h`` when given (filling ``cache["cross"]`` when
     cached), else over the cached ``cache["cross"]``.  Returns (x,
     metrics): the MoE FFN's {"moe_aux", "moe_dropped"}, else {}."""
+    x = constrain(x, ("batch", "seq_act", None))
     h = apply_norm(cfg.norm_type, p, "attn_norm", x)
     if cfg.use_mla:
         a = mla_attn(p["attn"], cfg, h, rope_cs, cache, pos)
@@ -402,10 +456,11 @@ def layer_fwd(p, cfg: ArchConfig, x, rope_cs, cache, pos, *,
         m, metrics = ffn(h)
         x = x + a + m
     else:
-        x = x + a
+        x = constrain(x + a, ("batch", "seq_act", None))
         m, metrics = ffn(apply_norm(cfg.norm_type, p, "mlp_norm", x))
         x = x + m
     if enc_h is not None or (cache is not None and "cross" in cache):
+        x = constrain(x, ("batch", "seq_act", None))
         h = apply_norm(cfg.norm_type, p, "cross_norm", x)
         x = x + gqa_attn(p["cross"], cfg, h, None,
                          None if cache is None else cache["cross"], None,
@@ -530,18 +585,50 @@ class _EmbedRows(torch.autograd.Function):
         return dw, None
 
 
+def _lookup(w, idx):
+    if torch.is_grad_enabled() and w.requires_grad:
+        return _EmbedRows.apply(w, idx)
+    return F.embedding(idx, w)
+
+
 def embed_tokens(params, cfg: ArchConfig, tokens):
     """The embedding rows of ``tokens`` in the activation dtype; under
     autograd through ``_EmbedRows`` (a backward that repeats bit for
-    bit)."""
+    bit).  On a mesh the table is gathered whole (vocab over ``model``
+    and ``embed`` over ``data`` cut every row) and each rank looks up
+    its own lanes: the same rows, and the table's gradient a ``Partial``
+    sum over the lane blocks."""
     w, idx = params["embed"], tokens.long()
-    if torch.is_grad_enabled() and w.requires_grad:
-        return _EmbedRows.apply(w, idx).to(act_dtype(cfg))
-    return F.embedding(idx, w).to(act_dtype(cfg))
+    mesh = mesh_of(w, idx)
+    if mesh is None:
+        return _lookup(w, idx).to(act_dtype(cfg))
+    lay = lane_layout(mesh, idx)
+    return local_apply(_lookup, mesh, (w, idx), (replicated(mesh), lay),
+                       lay).to(act_dtype(cfg))
 
 
 def _rope(cfg: ArchConfig, positions, dim: int):
     return rope_angles(positions, int(dim * cfg.rotary_frac), cfg.rope_theta)
+
+
+def rope_tables(cfg: ArchConfig, S: int, pos, dim: int, x):
+    """(cos, sin) for ``S`` positions from ``pos`` (an int, or a tensor
+    0-d or per lane (B,)).  On a mesh (``x`` a DTensor) the tables are
+    replicated DTensors, built the same on every rank from the positions
+    (a placed 0-d ``pos`` is replicated, so its value is every rank's);
+    per-lane positions give per-lane tables, built on each rank's
+    lanes."""
+    ar = torch.arange(S, device=x.device)
+    if is_dt(pos) and pos.dim():
+        mesh = pos.device_mesh
+        lay = lane_layout(mesh, pos)
+        return local_apply(lambda p: _rope(cfg, ar + p.reshape(-1, 1), dim),
+                           mesh, (pos,), (lay,), (lay, lay))
+    if is_dt(pos):
+        pos = pos.full_tensor()
+    positions = ar + (pos.reshape(-1, 1) if isinstance(pos, torch.Tensor)
+                      and pos.dim() else pos)
+    return tuple(like(t, x) for t in _rope(cfg, positions, dim))
 
 
 def backbone(params, cfg: ArchConfig, x, pos, cache, enc_h=None, *,
@@ -553,11 +640,8 @@ def backbone(params, cfg: ArchConfig, x, pos, cache, enc_h=None, *,
     ``remat`` (the loss's call) checkpoints the layers (``scan_layers``).
     Returns (the final normed hidden states, metrics: the MoE stack's
     means)."""
-    S = x.shape[1]
-    ar = torch.arange(S, device=x.device)
-    positions = ar + (pos.reshape(-1, 1) if isinstance(pos, torch.Tensor)
-                      and pos.dim() else pos)
-    rope = _rope(cfg, positions, cfg.qk_rope_dim if cfg.use_mla else cfg.dh)
+    rope = rope_tables(cfg, x.shape[1], pos,
+                       cfg.qk_rope_dim if cfg.use_mla else cfg.dh, x)
     metrics = {}
     for name, part, moe in ENCDEC_STACKS if cfg.is_encdec else STACKS:
         if name in params:
@@ -572,7 +656,7 @@ def run_encoder(params, cfg: ArchConfig, frames, *, remat: bool = False):
     """The non-causal encoder over the frame embeddings (B, S_enc, D):
     rope over positions 0..S_enc-1, the ``enc_layers``, ``enc_norm``."""
     x = frames.to(act_dtype(cfg))
-    rope = _rope(cfg, torch.arange(x.shape[1], device=x.device), cfg.dh)
+    rope = rope_tables(cfg, x.shape[1], 0, cfg.dh, x)
     x, _ = scan_layers(params["enc_layers"], cfg, x, rope, None, 0,
                        causal=False, remat=remat)
     return apply_norm(cfg.norm_type, params, "enc_norm", x)
@@ -582,8 +666,25 @@ def _ce_chunk(hc, w_head, yc):
     """One sequence chunk of the loss: (sum of logsumexp - gold logit over
     the labels >= 0, their count, the argmax hits among them), fp32.  The
     gold logit's gather picks one column a row, so its backward writes
-    each gradient entry once (no accumulation order to vary)."""
-    logits = (hc @ w_head.to(hc.dtype)).float()
+    each gradient entry once (no accumulation order to vary).  On a mesh
+    the chunk's lanes stay where they are, the product runs against the
+    vocab-sharded head and each rank sums its own lanes' rows whole
+    over the vocab: three ``Partial`` sums."""
+    hc = constrain(hc, ("batch", None, None))
+    logits = linear(hc, use(w_head, hc.dtype)).float()
+    mesh = mesh_of(logits)
+    if mesh is not None:
+        from torch.distributed.tensor import Partial, Replicate, Shard
+
+        lay = lane_layout(mesh, logits)
+        part = [Partial() if isinstance(q, Shard) else Replicate()
+                for q in lay]
+        return local_apply(_ce_sums, mesh, (logits, yc), (lay, lay),
+                           (part, part, part))
+    return _ce_sums(logits, yc)
+
+
+def _ce_sums(logits, yc):
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, torch.clamp(yc, min=0)[..., None])[..., 0]
     mask = (yc >= 0).float()
@@ -607,8 +708,8 @@ def chunked_cross_entropy(hidden, w_head, labels, chunk: int):
         h = F.pad(h, (0, 0, 0, pad))
         y = F.pad(y, (0, pad), value=-1)
     body = checkpointed(_ce_chunk)
-    loss_sum = cnt = correct = torch.zeros((), dtype=torch.float32,
-                                           device=hidden.device)
+    loss_sum = cnt = correct = like(torch.zeros(
+        (), dtype=torch.float32, device=hidden.device), hidden)
     for c in range(n):
         sl = slice(c * chunk, (c + 1) * chunk)
         l_c, n_c, r_c = body(h[:, sl], w_head, y[:, sl])
@@ -620,10 +721,10 @@ def chunked_cross_entropy(hidden, w_head, labels, chunk: int):
 def logits_last(params, cfg: ArchConfig, hidden):
     """LM-head logits (fp32) at the last position: (B, V)."""
     h = hidden[:, -1, :]
-    return (h @ params["lm_head"].to(h.dtype)).float()
+    return linear(h, use(params["lm_head"], h.dtype)).float()
 
 
 def logits_all(params, cfg: ArchConfig, hidden):
     """LM-head logits (fp32) at every position of a cached multi-token
     step: (B, S, V)."""
-    return (hidden @ params["lm_head"].to(hidden.dtype)).float()
+    return linear(hidden, use(params["lm_head"], hidden.dtype)).float()

@@ -44,6 +44,13 @@ O(pos)).  A paged lane first makes the rows it will write exclusively
 owned (``_ensure_blocks``) and afterwards returns the blocks wholly past
 its position to the pool (``_trim_blocks``).
 
+On a ``mesh=`` service (sessions/lm.py) every rank verifies its own
+lanes against its block of the cache, through the same programs, and
+the verify's tokens are gathered to every rank; the drafts come from
+the host, whose state every rank keeps the same, so every rank drafts,
+accepts and counts the same tokens, and the stream is the unsharded
+decoder's.
+
 Drafters are callbacks ``drafter(history, k) -> <= k tokens`` (history =
 the session's prompt and generated stream, on the host), so a session can
 be parked, spilled and resumed between or inside speculative calls
@@ -273,9 +280,6 @@ class SpeculativeDecoder:
         if verify not in ("scan", "parallel"):
             raise ValueError(f"verify must be 'scan' or 'parallel', "
                              f"got {verify!r}")
-        if getattr(service, "mesh", None) is not None:
-            raise ValueError("speculation over a mesh= service is not "
-                             "ported; speculate on an unsharded service")
         self.svc = service
         self.k = int(k)
         self.drafter = drafter if drafter is not None else ngram_drafter()
@@ -346,26 +350,34 @@ class SpeculativeDecoder:
                 # as forced tokens; steps past a mismatch write rows past
                 # the accepted position, dead by position
                 host = (tok, pos, inp, n_steps, n_steps, n_draft)
+            lo, hi = svc._slot_lo, svc._slot_hi  # this rank's lanes
+            host = tuple(a[lo:hi] for a in host)
             if svc.paged:
                 host += (svc._table,)
             args = svc._upload(*host)
             tb = args[-1:] if svc.paged else []
             if self.verify == "parallel":
                 inp_d, pos_d, act_d, nd_d = args[:4]
-                svc.cache, ys_d = self._verify_chunk(
-                    svc._params, svc.cache, *tb, inp_d, pos_d, act_d.bool())
+                cache, ys_d = self._verify_chunk(
+                    svc._params, svc._cache(), *tb, inp_d, pos_d,
+                    act_d.bool())
                 draft_d = inp_d[:, 1:]
             elif not svc.parallel_safe:
                 tok_d, pos_d, draft_d, nd_d, act_d = args[:5]
-                svc.cache, ys_d = self._verify_scan(
-                    svc._params, svc.cache, *tb, tok_d, pos_d, draft_d, nd_d,
-                    act_d.bool())
+                cache, ys_d = self._verify_scan(
+                    svc._params, svc._cache(), *tb, tok_d, pos_d, draft_d,
+                    nd_d, act_d.bool())
             else:
                 draft_d, nd_d = args[2][:, 1:], args[5]
-                svc.cache, _, _, ys_d = svc._decode_scan(
-                    svc._params, svc.cache, *tb, *args[:5])
+                cache, _, _, ys_d = svc._decode_scan(
+                    svc._params, svc._cache(), *tb, *args[:5])
+            svc._set_cache(cache)
             acc = acceptance_stats(ys_d, draft_d, nd_d) \
                 if svc.device_counters else None
+            if svc._slot_entry is not None:  # every rank's lanes
+                ys_d = svc._gather_slots(ys_d)
+                if acc is not None:
+                    acc = svc._gather_slots(acc)
             ys = ys_d.cpu().numpy()
         svc._record_dispatch(time.perf_counter() - t0, shape)
         if acc is not None:

@@ -86,7 +86,8 @@ def mesh_shape(mesh) -> dict:
     names = getattr(mesh, "mesh_dim_names", None)
     if names is None:
         return dict(mesh.shape)
-    return dict(zip(names, mesh.mesh.shape))
+    # not ``mesh.mesh.shape``: that builds the rank tensor on every read
+    return {n: mesh.size(i) for i, n in enumerate(names)}
 
 
 def axis_names(mesh) -> tuple:

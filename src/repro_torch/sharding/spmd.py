@@ -58,6 +58,17 @@ def local_range(mesh, entry, n: int) -> tuple[int, int]:
     return lo, lo + per
 
 
+def block_range(mesh, pls, dim: int, n: int) -> tuple[int, int]:
+    """[lo, hi) of an ``n``-long dim ``dim`` that this rank holds under the
+    DTensor placements ``pls``: the mesh axes that shard it, in mesh
+    order (DTensor nests their blocks so)."""
+    from torch.distributed.tensor import Shard
+
+    entry = tuple(a for a, p in zip(mesh.mesh_dim_names, pls)
+                  if isinstance(p, Shard) and p.dim == dim)
+    return local_range(mesh, entry, n)
+
+
 def owner(mesh, entry, i: int, n: int) -> int:
     """The global rank that packs index ``i`` of an ``n``-long dim: of the
     ranks holding its block, the one at coordinate 0 on every other mesh
@@ -90,15 +101,23 @@ def wrap(local: torch.Tensor, mesh, spec: P):
                               run_check=False)
 
 
-def place(full: torch.Tensor, mesh, spec: P):
-    """``full`` (the same on every rank) as a DTensor of ``spec``: each
-    rank keeps a copy of its own block, and nothing is sent."""
+def place_as(full: torch.Tensor, mesh, pls):
+    """``full`` (the same on every rank) as a DTensor of placements
+    ``pls``: each rank keeps a copy of its own block, and nothing is
+    sent."""
+    from torch.distributed.tensor import DTensor, Shard
+
     local = full
-    for d, entry in enumerate(spec):
-        if entry is not None:
-            lo, hi = local_range(mesh, entry, full.shape[d])
-            local = local.narrow(d, lo, hi - lo)
-    return wrap(local.clone() if local is not full else full, mesh, spec)
+    for d in sorted({p.dim for p in pls if isinstance(p, Shard)}):
+        lo, hi = block_range(mesh, pls, d, full.shape[d])
+        local = local.narrow(d, lo, hi - lo)
+    return DTensor.from_local(local.clone() if local is not full else full,
+                              mesh, pls, run_check=False)
+
+
+def place(full: torch.Tensor, mesh, spec: P):
+    """``full`` as a DTensor of ``spec`` (``place_as`` its placements)."""
+    return place_as(full, mesh, placements(spec, mesh))
 
 
 def gather(local_rows: torch.Tensor, mesh, entry, dim: int = 0):

@@ -16,10 +16,18 @@ Levers (wired via TrainConfig):
   * microbatch gradient accumulation over a leading micro-batch axis of
     the batch, the model state (TCN batch-norm running stats) chained
     from one micro-batch to the next;
-  * int8 error-feedback gradient compression (quant/compress.py).  The
-    reference applies it around a ``shard_map`` all-reduce over its
-    ``dp_axis``; one card has no all-reduce, so the port compresses and
-    decompresses the local gradient and has no ``dp_axis``.
+  * int8 error-feedback gradient compression (quant/compress.py) of each
+    rank's local gradient block.  The reference's ``dp_axis`` field, which
+    its trainer never reads, has no twin.
+
+On a mesh (``launch/train.py --mesh``, or a state placed by
+``launch/specs.train_state_pspecs``) every leaf of the state is a
+DTensor: a gradient comes back in its parameter's layout (the all-reduce
+of a replicated parameter, the reduce-scatter of a sharded one), the
+loss and the metrics reduced to replicated values, the AdamW update runs
+elementwise on each rank's blocks, and a checkpoint holds the whole
+tensors, written by the mesh's first rank and cut back to each rank's
+block on resume.
 
 A step writes into no tensor it was given: the optimizer's updates are
 new tensors, so the caller's params are never changed.
@@ -35,6 +43,8 @@ import torch
 
 from repro_torch.checkpoint import store
 from repro_torch.quant import compress
+from repro_torch.sharding import spmd
+from repro_torch.sharding.placed import full, is_dt, like
 from repro_torch.training import optim
 from repro_torch.utils.trees import tree_leaves, tree_map, tree_unflatten
 
@@ -71,9 +81,49 @@ def value_and_grad(loss_fn, params, *args):
     with torch.enable_grad():
         loss, aux = loss_fn(tree_unflatten(params, leaves), *args)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g
+    grads = [torch.zeros_like(p) if g is None else _as_param(g, p)
              for p, g in zip(leaves, grads)]
-    return loss.detach(), _detach(aux), tree_unflatten(params, grads)
+    return full(loss.detach()), tree_map(full, _detach(aux)), \
+        tree_unflatten(params, grads)
+
+
+def _as_param(g, p):
+    """A gradient in its parameter's layout (a partial sum over the lane
+    blocks reduced, or reduce-scattered onto a sharded parameter)."""
+    if is_dt(g) and list(g.placements) != list(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def _compress_local(grads, err_state):
+    """int8 error-feedback of each rank's local gradient blocks: the codes
+    and the residual of a block are its rank's own."""
+    loc = lambda t: t.to_local() if is_dt(t) else t
+    codes, scales, err = compress.compress_tree(tree_map(loc, grads),
+                                                tree_map(loc, err_state))
+    dec = compress.decompress_tree(codes, scales)
+    rewrap = lambda d, g: type(g).from_local(
+        d, g.device_mesh, g.placements, run_check=False) if is_dt(g) else d
+    return tree_map(rewrap, dec, grads), tree_map(rewrap, err, err_state)
+
+
+class _As:
+    """A live leaf's layout for ``store.restore_into(shardings=)``: the
+    whole restored tensor cut to this rank's block as ``live`` is (a
+    plain leaf stays whole)."""
+
+    def __init__(self, live):
+        self.live = live
+
+    def place(self, whole):
+        if not is_dt(self.live):
+            return whole
+        return spmd.place_as(whole, self.live.device_mesh,
+                             self.live.placements)
+
+
+def _host_float(v) -> float:
+    return float(v.full_tensor() if is_dt(v) else v)
 
 
 def make_train_step(loss_fn, optimizer, *, grad_accum: int = 1,
@@ -96,10 +146,10 @@ def make_train_step(loss_fn, optimizer, *, grad_accum: int = 1,
     def train_step(state: TrainState, batch):
         params = state.params
         if grad_accum > 1:
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
-            loss = torch.zeros((), dtype=torch.float32,
-                               device=state.step.device)
+            grads = tree_map(lambda p: torch.zeros_like(
+                p, dtype=torch.float32), params)
+            loss = like(torch.zeros((), dtype=torch.float32,
+                                    device=state.step.device), state.step)
             new_ms, per_mb = state.model_state, []
             for i in range(tree_leaves(batch)[0].shape[0]):
                 mb = tree_map(lambda x: x[i], batch)
@@ -115,9 +165,7 @@ def make_train_step(loss_fn, optimizer, *, grad_accum: int = 1,
 
         err_state = state.err_state
         if grad_compression == "int8_ef":
-            codes, scales, err_state = compress.compress_tree(grads,
-                                                              err_state)
-            grads = compress.decompress_tree(codes, scales)
+            grads, err_state = _compress_local(grads, err_state)
 
         updates, opt_state, opt_metrics = opt_update(grads, state.opt_state,
                                                      params)
@@ -151,12 +199,16 @@ class Trainer:
             has_model_state=has_ms, grad_compression=cfg.grad_compression)
         err = compress.init_error_state(params) if cfg.grad_compression \
             else {}
-        dev = tree_leaves(params)[0].device
+        leaf = tree_leaves(params)[0]
+        opt_state = self.opt_init(params)
+        if hasattr(opt_state, "step"):  # the counters, replicated on a mesh
+            opt_state = opt_state._replace(step=like(opt_state.step, leaf))
         self.state = TrainState(
-            params=params, opt_state=self.opt_init(params),
+            params=params, opt_state=opt_state,
             model_state=model_state if has_ms else {},
             err_state=err,
-            step=torch.zeros((), dtype=torch.int32, device=dev))
+            step=like(torch.zeros((), dtype=torch.int32, device=leaf.device),
+                      leaf))
         self.ckpt = store.AsyncCheckpointer(cfg.ckpt_dir, cfg.ckpt_keep) \
             if cfg.ckpt_dir else None
         self.straggler_events: list = []
@@ -165,17 +217,19 @@ class Trainer:
     def maybe_resume(self) -> int:
         if not self.cfg.ckpt_dir:
             return 0
-        got = store.restore_into(self.cfg.ckpt_dir, self.state)
+        got = store.restore_into(self.cfg.ckpt_dir, self.state,
+                                 shardings=tree_map(_As, self.state))
         if got is None:
             return 0
         step, tree = got
-        self.state = tree._replace(step=torch.tensor(
-            step, dtype=torch.int32, device=self.state.step.device))
+        self.state = tree._replace(step=like(torch.tensor(
+            step, dtype=torch.int32, device=self.state.step.device),
+            self.state.step))
         return step
 
     def run(self, steps: int | None = None):
         steps = steps if steps is not None else self.cfg.steps
-        start = int(self.state.step)
+        start = int(_host_float(self.state.step))
         ema = None
         for step in range(start, steps):
             batch = self.data_fn(step)
@@ -193,7 +247,8 @@ class Trainer:
                 ema = dt if ema is None else 0.9 * ema + 0.1 * dt
             if step % self.cfg.log_every == 0 or step == steps - 1:
                 self.history.append(
-                    {"step": step, **{k: float(v) for k, v in metrics.items()}})
+                    {"step": step, **{k: _host_float(v)
+                                      for k, v in metrics.items()}})
             if self.ckpt and (step + 1) % self.cfg.ckpt_every == 0:
                 self.ckpt.save_async(step + 1, self.state)
         if self.ckpt:

@@ -1,5 +1,6 @@
 """Small helpers shared by the port's packages."""
 
+from repro_torch.utils.hlo import collective_bytes, parse_cost_analysis
 from repro_torch.utils.trees import (
     flatten_dict,
     map_with_path,
@@ -10,6 +11,8 @@ from repro_torch.utils.trees import (
 )
 
 __all__ = [
+    "collective_bytes",
+    "parse_cost_analysis",
     "tree_size",
     "tree_bytes",
     "tree_zeros_like",

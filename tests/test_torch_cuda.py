@@ -1483,6 +1483,71 @@ def test_lm_train_step_repeats_bit_for_bit(dev, name):
                                                  tree_leaves(two)))
 
 
+def test_lm_train_step_placed_on_a_one_card_mesh(dev):
+    """olmo-1b ``smoke()``: a train step with the params and AdamW state
+    placed by param_pspecs / train_state_pspecs on a 1 x 1 NCCL mesh and
+    the batch by batch_pspecs, under shard_ctx, repeats bit for bit and
+    equals the unsharded step bit for bit (every placement a Shard over
+    a one-rank axis)."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.specs import (
+        batch_pspecs,
+        named,
+        place_tree,
+        train_state_pspecs,
+    )
+    from repro_torch.models import build_bundle
+    from repro_torch.sharding.ctx import shard_ctx
+    from repro_torch.sharding.rules import (
+        DEFAULT_RULES,
+        param_pspecs,
+        resolve_rules,
+    )
+    from repro_torch.training import TrainState, make_train_step
+    from repro_torch.training.optim import adamw
+    from repro_torch.utils.trees import tree_leaves
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    made = not dist.is_initialized()
+    if made:
+        dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                                rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        cfg = get_config("olmo-1b").smoke()
+        b = build_bundle(cfg, dev)
+        params = b.init(torch.Generator(device=dev).manual_seed(0))
+        opt = adamw(1e-3)
+        step = make_train_step(b.loss_fn, opt)
+        state = TrainState(params, opt[0](params), {}, {},
+                           torch.zeros((), dtype=torch.int32, device=dev))
+        batch = _on(arch_batch(cfg, B=4, S=64, seed=1), dev)
+        want = step(state, batch)
+        pspecs = param_pspecs(b.param_defs,
+                              resolve_rules(DEFAULT_RULES, mesh), mesh)
+        placed = place_tree(named(mesh, train_state_pspecs(
+            pspecs, state.opt_state)), state)
+        pbatch = place_tree(named(mesh, batch_pspecs(cfg, batch, mesh)),
+                            batch)
+        with shard_ctx(mesh, DEFAULT_RULES):
+            one, two = step(placed, pbatch), step(placed, pbatch)
+        whole = [[t.full_tensor() if hasattr(t, "full_tensor") else t
+                  for t in tree_leaves(r)] for r in (one, two)]
+        assert all(torch.equal(x, y) for x, y in zip(*whole))
+        assert all(torch.equal(x, y) for x, y in zip(whole[0],
+                                                     tree_leaves(want)))
+    finally:
+        if made:
+            dist.destroy_process_group()
+
+
 def test_lm_trainer_resume_is_bit_exact_on_card(dev, tmp_path):
     """olmo-1b ``smoke()``, grad_accum=2 and int8_ef, killed after 3 of 6
     steps and resumed: the uninterrupted run's state bit for bit."""

@@ -47,11 +47,14 @@ def test_port_files_found():
             "qwen25_32b.py", "moe.py", "spec.py", "rwkv.py",
             "ssm.py", "analytic.py", "costmodel.py", "train.py",
             "rules.py", "ctx.py", "spmd.py", "mesh.py", "specs.py",
-            "quickstart_torch.py", "serve_multitenant_torch.py",
+            "dryrun.py", "hlo.py", "placed.py", "quickstart_torch.py", "serve_multitenant_torch.py",
             "serve_stream_torch.py"} <= names
 
 
-@pytest.mark.parametrize("module", ["repro_torch.kernels.dispatch",
+@pytest.mark.parametrize("module", ["repro_torch.launch.dryrun",
+                                    "repro_torch.utils.hlo",
+                                    "repro_torch.sharding.placed",
+                                    "repro_torch.kernels.dispatch",
                                     "repro_torch.kernels",
                                     "repro_torch.configs",
                                     "repro_torch.sessions.paging",
@@ -96,6 +99,28 @@ def test_module_imports_first(module):
 
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     r = subprocess.run([sys.executable, "-c", f"import {module}"], env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+
+
+@pytest.mark.parametrize("module", ["repro_torch.launch.dryrun",
+                                    "repro_torch.utils.hlo",
+                                    "repro_torch.launch.train"])
+def test_mesh_modules_import_without_a_process_group(module):
+    """Importing a module that makes a world (the dry-run's fake one, the
+    launcher's) creates no process group and sets no environment
+    variable: its ``main`` does that."""
+    import os
+    import subprocess
+    import sys
+
+    code = ("import os, torch.distributed as dist\n"
+            "before = dict(os.environ)\n"
+            f"import {module}\n"
+            "assert not dist.is_initialized()\n"
+            "assert dict(os.environ) == before\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", code], env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr[-2000:]
 

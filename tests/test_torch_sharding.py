@@ -420,6 +420,25 @@ def test_spmd_blocks_tile_the_dim(entry):
     assert blocks == set(range(spmd.n_blocks(meshes[0], entry)))
 
 
+@pytest.mark.parametrize("spec", [(None, "data"), (("pod", "data"), "model"),
+                                  ("model", None), (("data", "model"),),
+                                  (None, None)])
+def test_block_range_of_placements_is_local_range_of_the_spec(spec):
+    """``spmd.block_range`` (keyed by DTensor placements: how the trainer's
+    resume and a placed cache's row write see a live leaf) gives every
+    rank the block that ``spmd.local_range`` gives for the spec entry."""
+    from repro_torch.sharding import spmd
+    from repro_torch.sharding.rules import P, placements
+
+    shape = {"pod": 2, "data": 2, "model": 2}
+    for r in range(8):
+        m = FakeDeviceMesh(shape, r)
+        pls = placements(P(*spec), m)
+        for d, entry in enumerate(spec):
+            assert spmd.block_range(m, pls, d, 16) == \
+                spmd.local_range(m, entry, 16), (r, d)
+
+
 def test_constrain_without_and_with_a_context():
     from repro_torch.sharding.ctx import constrain, current_rules, shard_ctx
 

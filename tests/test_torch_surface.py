@@ -6,9 +6,9 @@ through ``ast`` (no module of either package is imported for it):
     module's twin under src/repro_torch/ (by any binding, an import
     included), or stands in ``EXCEPTIONS`` with its reason;
   * every exception is still needed (the twin lacks the name);
-  * the reference files without a twin are exactly the two left for a
-    later slice: the mesh dry-run (``launch/dryrun.py``) and the XLA HLO
-    reader (``utils/hlo.py``).
+  * no reference file is without a twin (the last two, the mesh dry-run
+    ``launch/dryrun.py`` and the collective accounting ``utils/hlo.py``,
+    came with the slice that shards the LM).
 
 Then the names this surface brought in, against the reference's on the
 CPU: the tree helpers, ``bank_store``/``bank_set_store``, and
@@ -28,18 +28,12 @@ torch = pytest.importorskip("torch")
 ROOT = Path(__file__).resolve().parents[1]
 REF, PORT = ROOT / "src" / "repro", ROOT / "src" / "repro_torch"
 
-MESH_HLO = ("dry-runs a mesh through XLA or reads XLA HLO text: left for "
-            "a later slice")
 PALLAS = "a Pallas body; the port's counterpart has another name"
 REGISTRY = ("the reference's backend registry; the port resolves backends "
             "with dispatch.resolve / require_device")
 
-# (reference module, name): reason.  Three groups only.
+# (reference module, name): reason.  Two groups only.
 EXCEPTIONS = {
-    # HLO
-    ("utils/__init__.py", "collective_bytes"): MESH_HLO + " (utils/hlo.py)",
-    ("utils/__init__.py", "parse_cost_analysis"):
-        MESH_HLO + " (utils/hlo.py)",
     # Pallas bodies with a counterpart under another name
     ("kernels/tcn_block.py", "tcn_block_pallas"):
         PALLAS + ": kernels/tcn_block.tcn_block (csrc/tcn_block.cu)",
@@ -51,7 +45,7 @@ EXCEPTIONS = {
     ("kernels/dispatch.py", "build"): REGISTRY,
     ("kernels/dispatch.py", "registered_ops"): REGISTRY,
 }
-LEFT_OUT = {"launch/dryrun.py", "utils/hlo.py"}
+LEFT_OUT: set = set()
 
 
 def _bound(path: Path, *, imports: bool) -> set:
@@ -103,12 +97,58 @@ def test_reference_names_are_bound_in_the_twin(rel):
 
 def test_every_exception_is_needed():
     for (rel, name), reason in EXCEPTIONS.items():
-        assert reason.startswith((MESH_HLO, PALLAS, REGISTRY)), reason
+        assert reason.startswith((PALLAS, REGISTRY)), reason
         assert name in _missing(rel), f"{rel}: {name} is bound in the twin"
 
 
 def test_left_out_files_are_the_mesh_and_hlo_ones():
-    assert set(REF_FILES) - set(TWINNED) == LEFT_OUT
+    """No reference file is left out: every one has its twin."""
+    assert set(REF_FILES) - set(TWINNED) == LEFT_OUT == set()
+
+
+# (reference module, record class, field): reason.  A record is a
+# dataclass or a NamedTuple; its twin keeps its fields but these.
+FIELD_DEPARTURES = {
+    ("models/build.py", "Bundle", "device"):
+        "the port's only: the torch device the bundle's tensors live on",
+    ("training/trainer.py", "TrainConfig", "dp_axis"):
+        "the reference's only: declared and never read by its trainer; "
+        "the port keeps no option that nothing reads",
+}
+
+
+def _records(path: Path) -> dict:
+    """{class: [field, ...]} of the dataclasses and NamedTuples that
+    ``path`` defines at top level."""
+    out = {}
+    for n in ast.parse(path.read_text(), filename=str(path)).body:
+        if isinstance(n, ast.ClassDef) and (
+                any("dataclass" in ast.unparse(d) for d in n.decorator_list)
+                or any(ast.unparse(b) == "NamedTuple" for b in n.bases)):
+            out[n.name] = [a.target.id for a in n.body
+                           if isinstance(a, ast.AnnAssign)
+                           and isinstance(a.target, ast.Name)]
+    return out
+
+
+def _field_gaps() -> set:
+    """(module, class, field) of every field in only one of a record and
+    its twin (both defined in the twinned modules)."""
+    gaps = set()
+    for rel in TWINNED:
+        ref, port = _records(REF / rel), _records(PORT / rel)
+        for cls in set(ref) & set(port):
+            gaps |= {(rel, cls, f) for f in set(ref[cls]) ^ set(port[cls])}
+    return gaps
+
+
+def test_records_keep_the_reference_fields():
+    """Every dataclass and NamedTuple of a reference module has the same
+    fields in its twin but the named departures, and each departure is
+    still one (the order may differ: both packages build records by
+    keyword)."""
+    gaps = _field_gaps()
+    assert gaps == set(FIELD_DEPARTURES), gaps ^ set(FIELD_DEPARTURES)
 
 
 # ---------------------------------------------------------------------------
