@@ -39,6 +39,7 @@ from repro_torch.kernels.dispatch import require_device
 from repro_torch.kernels.ref import expand_weight, tap_sum
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.tcn import BN_EPS
+from repro_torch.obs.trace import Tracer
 from repro_torch.quant.log2 import fake_quant_act_u4, fake_quant_log2
 
 
@@ -191,7 +192,7 @@ def _head_steps(h, head_w, head_b, fc_w, fc_b, qa):
 
 def make_fused_chunk(cfg: ArchConfig, *, quantize: bool = False,
                      backend: str | None = None, device="cuda",
-                     inplace: bool = False):
+                     inplace: bool = False, tracer: Tracer | None = None):
     """Build the fused chunk executor (kernel backend resolved ONCE for
     ``device``).
 
@@ -216,7 +217,9 @@ def make_fused_chunk(cfg: ArchConfig, *, quantize: bool = False,
     the rings, a full pass over them).  ``inplace=True`` is for a caller
     that owns the grid: the new rows are written into ``states``' own
     rings and t, nothing else moves, and ``states`` itself is
-    returned."""
+    returned.  ``tracer`` (obs/trace.py; none: a disabled one) times each
+    call's ``tcn_chunk`` spans as a ``chunk`` span (args ``spans``, the
+    kernel calls) and the head as a ``head`` span (``steps``)."""
     from repro_torch.kernels.tcn_block import make_chunk_fn, max_chunk_len
 
     chunk_fn = make_chunk_fn(backend or cfg.kernel_backend,
@@ -228,27 +231,31 @@ def make_fused_chunk(cfg: ArchConfig, *, quantize: bool = False,
                                  for rs in ring_sizes(cfg).values()], k))
     qa = (lambda a: fake_quant_act_u4(a, cfg.act_scale)) if quantize \
         else (lambda a: a)
+    tracer = Tracer() if tracer is None else tracer
 
     def fused_chunk(fused_params, states, x, lengths):
         lengths = lengths.to(states["t"].dtype)
         T = x.shape[1]
         hs = []
-        for a in range(0, T, span):
-            b = min(a + span, T)
-            if b - a < T:
-                xs, ls = x[:, a:b].contiguous(), (lengths - a).clamp(0, b - a)
-            else:
-                xs, ls = x, lengths
-            # after the first span the states are this call's own copies
-            states, h = chunk_fn(fused_params["blocks"], states, xs, ls, k=k,
-                                 act_scale=cfg.act_scale, quantize=quantize,
-                                 inplace=inplace or a > 0)
-            hs.append(h)
-        h = hs[0] if len(hs) == 1 else torch.cat(hs, dim=1)
-        emb, logits = _head_steps(h, expand_weight(fused_params["head_w"]),
-                                 fused_params["head_b"],
-                                 fused_params["fc"]["w"],
-                                 fused_params["fc"]["b"], qa)
+        with tracer.span("chunk", cat="tcn", spans=-(-T // span)):
+            for a in range(0, T, span):
+                b = min(a + span, T)
+                if b - a < T:
+                    xs = x[:, a:b].contiguous()
+                    ls = (lengths - a).clamp(0, b - a)
+                else:
+                    xs, ls = x, lengths
+                # after the first span the states are this call's own copies
+                states, h = chunk_fn(fused_params["blocks"], states, xs, ls,
+                                     k=k, act_scale=cfg.act_scale,
+                                     quantize=quantize,
+                                     inplace=inplace or a > 0)
+                hs.append(h)
+            h = hs[0] if len(hs) == 1 else torch.cat(hs, dim=1)
+        with tracer.span("head", cat="tcn", steps=T):
+            emb, logits = _head_steps(h, expand_weight(
+                fused_params["head_w"]), fused_params["head_b"],
+                fused_params["fc"]["w"], fused_params["fc"]["b"], qa)
         return states, emb, logits
 
     return fused_chunk

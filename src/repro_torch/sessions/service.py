@@ -52,12 +52,21 @@ new ring rows, not a copy of every ring; parking copies a slot's column
 out, and resuming writes it back in place.
 
 Telemetry: ``dispatches``/``evictions``/``enrolls`` read the service's
-``MetricsRegistry`` (``metrics()`` returns its snapshot), each tick is a
-``dispatch`` span of the tracer and one sample of the
-``dispatch_latency_us`` histogram of its shape, timed after the tick's
-outputs reached the host (so it includes the device work), and
-``device_counters=True`` adds the tick's occupancy, computed on the
-device from the tick's lengths (obs/device.py).
+``MetricsRegistry`` (``metrics()`` returns its snapshot); each tick is one
+sample of the ``dispatch_latency_us`` histogram of its shape, timed after
+the tick's outputs reached the host (so it includes the device work), and
+``device_counters=True`` adds the tick's occupancy, computed on the device
+from the tick's lengths (obs/device.py).  The tracer (obs/trace.py) gets
+one span per layer of a call, never one per step: a push is ``push.pack``
+(checks, binds, banks made resident), ``slot_fc``, then per tick
+``tick.pack``, ``dispatch`` (inside it ``upload``, the fused chunk's
+``chunk`` and ``head``, ``banked``, ``gather`` on a mesh, ``readback``)
+and ``tick.scatter``, then ``push.results``; an enrollment is ``enroll``
+(inside it ``enroll.upload``, ``enroll.embed``, ``enroll.bank``,
+``enroll.sync``).  The spans carry their counts (streams, steps, bytes,
+ways, ...) as args, and ``call``: ``calls``, the service's running number
+of its pushes and enrollments.  While torch.profiler records, each span
+is also a ``repro_torch.<name>`` range on the profiler's clock.
 
 Passing ``mesh=`` (a ``DeviceMesh`` of launch/mesh.py, one process per
 rank) shards the slot grid over the mesh's ``data`` axis and the dense
@@ -273,9 +282,6 @@ class SlotGridService:
         self._latency_hist(shape).record(seconds * 1e6)
         self._g_bound.set(len(self.sched.slot_of))
         self._g_parked.set(len(self.parking))
-        self.tracer.counter(f"{self._service_name}_sessions",
-                            bound=len(self.sched.slot_of),
-                            parked=len(self.parking))
 
     def _ingest_occupancy(self, stats) -> None:
         """Fold one tick's device occupancy vector
@@ -636,7 +642,7 @@ class StreamSessionService(SlotGridService):
                 params, bn_state, cfg, quantize=quantize)
             self._fused_chunk = make_grid_fused(
                 cfg, quantize=quantize, backend=kernel_backend, device=dev,
-                inplace=True)
+                inplace=True, tracer=self.tracer)
             fwd = make_fused_forward(cfg, quantize=quantize,
                                      backend=kernel_backend, device=dev)
             self._embed = lambda x: fwd(self._fused_params, x)[0]
@@ -689,6 +695,7 @@ class StreamSessionService(SlotGridService):
         # bounded latent-replay memory (sessions/rehearsal.py)
         self.rehearsal = RehearsalBuffer(rehearsal_cap) \
             if rehearsal_cap > 0 else None
+        self.calls = 0  # pushes and enrollments so far: their trace ids
         reg = self.metrics_registry
         self._c_enrolls = reg.counter("enrolls_total", service="tcn")
         self._c_enroll_shots = reg.counter("enroll_shots_total", service="tcn")
@@ -967,110 +974,132 @@ class StreamSessionService(SlotGridService):
         tenant_logits (t_i, max_ways) | None, the end-of-chunk ``pred`` and
         the cumulative ``step``; a (C_in,) sample gets the last row only.
         A pushed session's parked tenant bank is made resident first."""
-        if len(chunks) > self.n_slots:
-            raise ValueError(
-                f"{len(chunks)} sessions pushed but only {self.n_slots} "
-                "slots; split the push or grow the grid")
-        c_in = self.cfg.tcn_in_channels
-        arrs, scalar = {}, {}
-        for sid, v in chunks.items():
-            a = np.asarray(v, np.float32)
-            scalar[sid] = a.ndim == 1
-            if a.ndim == 1:
-                a = a[None]
-            if a.ndim != 2 or a.shape[1] != c_in:
-                raise ValueError(
-                    f"session {sid}: expected (C_in,) or (t, C_in) with "
-                    f"C_in={c_in}, got shape {np.asarray(v).shape}")
-            if a.shape[0] == 0:
-                raise ValueError(f"session {sid}: empty chunk")
-            arrs[sid] = a
-        self._touch_and_bind(chunks)
-        if self.paged_bank:
-            for sid in arrs:
-                t = self.sessions[sid].tenant
-                if t != NO_TENANT:
-                    self._ensure_bank_resident(t)
+        self.calls += 1
+        with self.tracer.call_scope(self.calls):
+            return self._push_audio(chunks)
 
-        slot_of = {sid: self.sched.slot_of[sid] for sid in arrs}
-        lens = {sid: a.shape[0] for sid, a in arrs.items()}
-        max_len = max(lens.values())
-        pieces = {sid: [] for sid in arrs}
-        w, b = self._slot_fc()
+    def _push_audio(self, chunks: dict[int, Any]) -> dict[int, dict]:
+        tr = self.tracer
+        with tr.span("push.pack", cat="tcn", streams=len(chunks)) as sp:
+            if len(chunks) > self.n_slots:
+                raise ValueError(
+                    f"{len(chunks)} sessions pushed but only {self.n_slots} "
+                    "slots; split the push or grow the grid")
+            c_in = self.cfg.tcn_in_channels
+            arrs, scalar = {}, {}
+            for sid, v in chunks.items():
+                a = np.asarray(v, np.float32)
+                scalar[sid] = a.ndim == 1
+                if a.ndim == 1:
+                    a = a[None]
+                if a.ndim != 2 or a.shape[1] != c_in:
+                    raise ValueError(
+                        f"session {sid}: expected (C_in,) or (t, C_in) with "
+                        f"C_in={c_in}, got shape {np.asarray(v).shape}")
+                if a.shape[0] == 0:
+                    raise ValueError(f"session {sid}: empty chunk")
+                arrs[sid] = a
+            self._touch_and_bind(chunks)
+            if self.paged_bank:
+                for sid in arrs:
+                    t = self.sessions[sid].tenant
+                    if t != NO_TENANT:
+                        self._ensure_bank_resident(t)
+
+            slot_of = {sid: self.sched.slot_of[sid] for sid in arrs}
+            lens = {sid: a.shape[0] for sid, a in arrs.items()}
+            max_len = max(lens.values())
+            pieces = {sid: [] for sid in arrs}
+            sp.set(steps=max_len)
+        with tr.span("slot_fc", cat="tcn", paged=self.paged_bank):
+            w, b = self._slot_fc()
         off = 0
         while off < max_len:
             t_pad = self._tick_len(max_len - off)
-            x = np.zeros((self.n_slots, t_pad, c_in), np.float32)
-            tick_lens = np.zeros(self.n_slots, np.int32)
-            for sid, a in arrs.items():
-                seg = a[off:off + t_pad]
-                if seg.shape[0]:
-                    x[slot_of[sid], :seg.shape[0]] = seg
-                    tick_lens[slot_of[sid]] = seg.shape[0]
+            with tr.span("tick.pack", cat="tcn", t_pad=t_pad):
+                x = np.zeros((self.n_slots, t_pad, c_in), np.float32)
+                tick_lens = np.zeros(self.n_slots, np.int32)
+                for sid, a in arrs.items():
+                    seg = a[off:off + t_pad]
+                    if seg.shape[0]:
+                        x[slot_of[sid], :seg.shape[0]] = seg
+                        tick_lens[slot_of[sid]] = seg.shape[0]
             shape = f"T{t_pad}"
             t0 = time.perf_counter()
-            with self.tracer.span("dispatch", cat="tcn", shape=shape,
-                                  lanes=len(arrs), fused=self.fused):
+            with tr.span("dispatch", cat="tcn", shape=shape,
+                         lanes=len(arrs), fused=self.fused):
                 lo, hi = self._slot_lo, self._slot_hi  # this rank's slots
-                xt = torch.from_numpy(x[lo:hi]).to(self.device)
-                lt = torch.from_numpy(tick_lens[lo:hi]).to(self.device)
-                if self.fused:
+                with tr.span("upload", cat="tcn", bytes=x[lo:hi].nbytes
+                             + tick_lens[lo:hi].nbytes):
+                    xt = torch.from_numpy(x[lo:hi]).to(self.device)
+                    lt = torch.from_numpy(tick_lens[lo:hi]).to(self.device)
+                if self.fused:  # spans "chunk" and "head" inside
                     grid, emb, logits = self._fused_chunk(
                         self._fused_params, self._grid(), xt, lt)
                 else:
-                    valid = torch.arange(t_pad, device=self.device)[None, :] \
-                        < lt[:, None]
-                    grid, emb, logits = grid_scan(
-                        self._params, self._bn, self.cfg, self._grid(), xt,
-                        valid, quantize=self.quantize)
+                    with tr.span("chunk", cat="tcn", spans=0):
+                        valid = torch.arange(t_pad, device=self.device)[
+                            None, :] < lt[:, None]
+                        grid, emb, logits = grid_scan(
+                            self._params, self._bn, self.cfg, self._grid(),
+                            xt, valid, quantize=self.quantize)
                 self._set_grid(grid)
                 # the paged table is block-granular (>= max_ways): keep the
                 # result surface layout-independent
-                tlogits = self._banked(emb, w, b)[..., :self.max_ways]
+                with tr.span("banked", cat="tcn", ways=w.shape[1]):
+                    tlogits = self._banked(emb, w, b)[..., :self.max_ways]
                 if self._slot_entry is not None:  # every rank's slots
-                    cut = np.cumsum([emb.shape[-1], logits.shape[-1]])
-                    out = self._gather_slots(
-                        torch.cat([emb, logits, tlogits], dim=-1))
-                    emb, logits, tlogits = (out[..., :cut[0]],
-                                            out[..., cut[0]:cut[1]],
-                                            out[..., cut[1]:])
-                    if self.device_counters:
-                        lt = torch.from_numpy(tick_lens).to(self.device)
-                # the occupancy reduces the uploaded lengths on the device;
-                # its copy is queued ahead of the outputs' blocking copies
-                # on the same stream, so it adds no wait of its own
-                occ = occupancy_stats(lt, t_pad).to("cpu", non_blocking=True) \
-                    if self.device_counters else None
-                emb, logits, tlogits = (emb.cpu().numpy(),
-                                        logits.cpu().numpy(),
-                                        tlogits.cpu().numpy())
+                    with tr.span("gather", cat="tcn"):
+                        cut = np.cumsum([emb.shape[-1], logits.shape[-1]])
+                        out = self._gather_slots(
+                            torch.cat([emb, logits, tlogits], dim=-1))
+                        emb, logits, tlogits = (out[..., :cut[0]],
+                                                out[..., cut[0]:cut[1]],
+                                                out[..., cut[1]:])
+                        if self.device_counters:
+                            lt = torch.from_numpy(tick_lens).to(self.device)
+                with tr.span("readback", cat="tcn") as sp:
+                    # the occupancy reduces the uploaded lengths on the
+                    # device; its copy is queued ahead of the outputs'
+                    # blocking copies on the same stream, so it adds no
+                    # wait of its own
+                    occ = occupancy_stats(lt, t_pad).to(
+                        "cpu", non_blocking=True) \
+                        if self.device_counters else None
+                    emb, logits, tlogits = (emb.cpu().numpy(),
+                                            logits.cpu().numpy(),
+                                            tlogits.cpu().numpy())
+                    sp.set(bytes=emb.nbytes + logits.nbytes + tlogits.nbytes
+                           + (occ.nbytes if occ is not None else 0))
             self._record_dispatch(time.perf_counter() - t0, shape)
             if occ is not None:
                 self._ingest_occupancy(occ.numpy())
-            for sid in arrs:
-                n = min(max(lens[sid] - off, 0), t_pad)
-                if n:
-                    s = slot_of[sid]
-                    pieces[sid].append(
-                        (emb[s, :n], logits[s, :n], tlogits[s, :n]))
+            with tr.span("tick.scatter", cat="tcn"):
+                for sid in arrs:
+                    n = min(max(lens[sid] - off, 0), t_pad)
+                    if n:
+                        s = slot_of[sid]
+                        pieces[sid].append(
+                            (emb[s, :n], logits[s, :n], tlogits[s, :n]))
             off += t_pad
 
-        out = {}
-        for sid in arrs:
-            sess = self.sessions[sid]
-            sess.steps += lens[sid]
-            e, lg, tl = (np.concatenate([p[i] for p in pieces[sid]])
-                         for i in range(3))
-            personalized = (sess.tenant != NO_TENANT
-                            and self._tenant_ways[sess.tenant] > 0)
-            head = tl if personalized else lg
-            if scalar[sid]:
-                e, lg, tl = e[-1], lg[-1], tl[-1]
-            res = {"emb": e, "logits": lg,
-                   "tenant_logits": tl if personalized else None,
-                   "pred": int(head[-1].argmax()), "step": sess.steps}
-            sess.last = res
-            out[sid] = res
+        with tr.span("push.results", cat="tcn"):
+            out = {}
+            for sid in arrs:
+                sess = self.sessions[sid]
+                sess.steps += lens[sid]
+                e, lg, tl = (np.concatenate([p[i] for p in pieces[sid]])
+                             for i in range(3))
+                personalized = (sess.tenant != NO_TENANT
+                                and self._tenant_ways[sess.tenant] > 0)
+                head = tl if personalized else lg
+                if scalar[sid]:
+                    e, lg, tl = e[-1], lg[-1], tl[-1]
+                res = {"emb": e, "logits": lg,
+                       "tenant_logits": tl if personalized else None,
+                       "pred": int(head[-1].argmax()), "step": sess.steps}
+                sess.last = res
+                out[sid] = res
         return out
 
     # protocol verb (sessions.SessionService): the TCN payload is audio
@@ -1095,7 +1124,9 @@ class StreamSessionService(SlotGridService):
         if tenant == NO_TENANT:
             raise ValueError("session has no tenant; open with tenant=None "
                              "or an explicit tenant id to personalize")
-        with self.tracer.span("enroll", cat="tcn", sid=sid, tenant=tenant):
+        self.calls += 1
+        with self.tracer.call_scope(self.calls), \
+                self.tracer.span("enroll", cat="tcn", sid=sid, tenant=tenant):
             way = self._enroll(tenant, shots, embedded, way, label)
         self._c_enrolls.inc()
         self._c_enroll_shots.inc(len(shots))
@@ -1106,44 +1137,55 @@ class StreamSessionService(SlotGridService):
     enroll = enroll_shots
 
     def _enroll(self, tenant: int, shots, embedded: bool, way, label) -> int:
-        x = torch.tensor(np.asarray(shots, np.float32)).to(self.device)
-        emb = x if embedded else self._embed(x)
-        if label is not None:
-            if way is not None:
-                raise ValueError("pass way= or label=, not both")
-            way = self._tenant_labels.setdefault(tenant, {}).get(label)
-        if way is None:
-            if self._tenant_ways[tenant] >= self.max_ways:
-                raise RuntimeError(
-                    f"tenant {tenant} at max_ways={self.max_ways}")
-            if self.paged_bank:
-                self._ensure_bank_resident(tenant)
-                way = self.bankpool.add_class(tenant, emb)
-                self._update_pool_gauges()
-            else:
-                self._bank_row(tenant, lambda bank, r: bank_add_class(
-                    bank, r, emb))
-                way = int(self._tenant_ways[tenant])
-            self._tenant_ways[tenant] += 1
-            if label is not None:
-                self._tenant_labels[tenant][label] = way
+        tr = self.tracer
+        with tr.span("enroll.upload", cat="tcn") as sp:
+            x = torch.tensor(np.asarray(shots, np.float32)).to(self.device)
+            sp.set(bytes=x.nbytes)
+        if embedded:
+            emb = x
         else:
-            if not 0 <= way < self._tenant_ways[tenant]:
-                raise ValueError(
-                    f"way {way} not enrolled for tenant {tenant} "
-                    f"({self._tenant_ways[tenant]} ways); omit way= to "
-                    "enroll")
-            if self.paged_bank:
-                self._ensure_bank_resident(tenant)
-                self.bankpool.update_class(tenant, way, emb)
+            with tr.span("enroll.embed", cat="tcn", shots=x.shape[0],
+                         steps=x.shape[1]):
+                emb = self._embed(x)
+        with tr.span("enroll.bank", cat="tcn") as sp:
+            if label is not None:
+                if way is not None:
+                    raise ValueError("pass way= or label=, not both")
+                way = self._tenant_labels.setdefault(tenant, {}).get(label)
+            sp.set(new_way=way is None)
+            if way is None:
+                if self._tenant_ways[tenant] >= self.max_ways:
+                    raise RuntimeError(
+                        f"tenant {tenant} at max_ways={self.max_ways}")
+                if self.paged_bank:
+                    self._ensure_bank_resident(tenant)
+                    way = self.bankpool.add_class(tenant, emb)
+                    self._update_pool_gauges()
+                else:
+                    self._bank_row(tenant, lambda bank, r: bank_add_class(
+                        bank, r, emb))
+                    way = int(self._tenant_ways[tenant])
+                self._tenant_ways[tenant] += 1
+                if label is not None:
+                    self._tenant_labels[tenant][label] = way
             else:
-                self._bank_row(tenant, lambda bank, r: bank_update_class(
-                    bank, r, way, emb))
-        if self.rehearsal is not None:
-            self.rehearsal.add(tenant, way, emb.cpu().numpy())
-            self._g_rehearsal_bytes.set(self.rehearsal.nbytes())
+                if not 0 <= way < self._tenant_ways[tenant]:
+                    raise ValueError(
+                        f"way {way} not enrolled for tenant {tenant} "
+                        f"({self._tenant_ways[tenant]} ways); omit way= to "
+                        "enroll")
+                if self.paged_bank:
+                    self._ensure_bank_resident(tenant)
+                    self.bankpool.update_class(tenant, way, emb)
+                else:
+                    self._bank_row(tenant, lambda bank, r: bank_update_class(
+                        bank, r, way, emb))
+            if self.rehearsal is not None:
+                self.rehearsal.add(tenant, way, emb.cpu().numpy())
+                self._g_rehearsal_bytes.set(self.rehearsal.nbytes())
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)  # the update has landed
+            with tr.span("enroll.sync", cat="tcn"):
+                torch.cuda.synchronize(self.device)  # the update has landed
         self._maybe_park_tenant(tenant)
         return way
 

@@ -101,15 +101,15 @@ def grid_scan(params, bn_state, cfg: ArchConfig, states: dict, x, valid, *,
 
 def make_grid_fused(cfg: ArchConfig, *, quantize: bool = False,
                     backend: str | None = None, device="cuda",
-                    inplace: bool = False):
+                    inplace: bool = False, tracer=None):
     """Fused-kernel twin of ``grid_scan``: ``fused(fused_params, states, x,
     lengths)`` with lengths (S,) valid-prefix lengths.  On baked params
     its outputs at valid positions and its end state equal grid_scan's.
-    A plain alias of ``core.streaming.make_fused_chunk`` (``inplace``
-    included), kept so the name matches the reference's
+    A plain alias of ``core.streaming.make_fused_chunk`` (``inplace`` and
+    ``tracer`` included), kept so the name matches the reference's
     ``sessions/state.make_grid_fused``."""
     return make_fused_chunk(cfg, quantize=quantize, backend=backend,
-                            device=device, inplace=inplace)
+                            device=device, inplace=inplace, tracer=tracer)
 
 
 def grid_pspecs(cfg: ArchConfig, mesh, n_slots: int, rules: dict | None = None):

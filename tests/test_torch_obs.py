@@ -223,7 +223,8 @@ def test_tracer_records_service_lifecycle():
     evict = next(e for e in t.events() if e["name"] == "evict")
     assert evict["args"]["victim"] == a
     dispatch = next(e for e in t.events() if e["name"] == "dispatch")
-    assert dispatch["args"] == {"shape": "T1", "lanes": 1, "fused": True}
+    assert dispatch["args"] == {"shape": "T1", "lanes": 1, "fused": True,
+                                "call": 1}
 
 
 def test_counter_properties_route_through_the_registry():
