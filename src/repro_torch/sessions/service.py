@@ -68,6 +68,18 @@ ways, ...) as args, and ``call``: ``calls``, the service's running number
 of its pushes and enrollments.  While torch.profiler records, each span
 is also a ``repro_torch.<name>`` range on the profiler's clock.
 
+``readback`` (arg ``pinned``) copies a tick's outputs to the host.  On a
+card they go through one page-locked staging buffer the service owns
+(utils/host.StagingBuffer): allocated at the first tick, reused by every
+later one, grown only when a tick needs more bytes, kept for the service's
+life; the three copies are queued on the current stream and waited for
+once, inside ``readback``.  The gauge ``readback_staging_bytes`` and the
+counter ``readback_staging_allocs_total`` count its bytes and
+allocations.  No returned array aliases the buffer, since the next tick
+overwrites it: a tick that another follows copies its slices out, and
+``push.results`` concatenates each stream's.  On the CPU the outputs
+already are host tensors and are returned as they are.
+
 Passing ``mesh=`` (a ``DeviceMesh`` of launch/mesh.py, one process per
 rank) shards the slot grid over the mesh's ``data`` axis and the dense
 tenant bank over ``model`` (sessions/state.grid_pspecs,
@@ -130,6 +142,7 @@ from repro_torch.sessions.tenancy import (
 )
 from repro_torch.sharding import spmd
 from repro_torch.sharding.rules import map_specs
+from repro_torch.utils.host import StagingBuffer
 
 NO_TENANT = -1
 
@@ -709,10 +722,27 @@ class StreamSessionService(SlotGridService):
         if self.rehearsal is not None:
             self._g_rehearsal_bytes = reg.gauge("rehearsal_bytes",
                                                 service="tcn")
+        # a tick's outputs come back through one reused page-locked buffer
+        # on a card; on the CPU they already are host tensors
+        self._staging = None
+        if torch.device(dev).type == "cuda":
+            self._stage_readback(pinned=True)
 
     @property
     def enrolls(self) -> int:
         return int(self._c_enrolls.value)
+
+    def _stage_readback(self, pinned: bool) -> None:
+        """Copy each tick's outputs back through one ``StagingBuffer``
+        (utils/host.py), page-locked when ``pinned``; its bytes held and its
+        allocations are the ``readback_staging_bytes`` gauge and the
+        ``readback_staging_allocs_total`` counter."""
+        reg = self.metrics_registry
+        self._staging = StagingBuffer(
+            pinned,
+            nbytes_gauge=reg.gauge("readback_staging_bytes", service="tcn"),
+            allocs_counter=reg.counter("readback_staging_allocs_total",
+                                       service="tcn"))
 
     # -- the grid and the bank on this rank -----------------------------------
     # Without a mesh these are ``states`` and ``bank`` themselves.  With
@@ -973,7 +1003,10 @@ class StreamSessionService(SlotGridService):
         Returns {sid: result}: per-sample emb (t_i, V), logits (t_i, n),
         tenant_logits (t_i, max_ways) | None, the end-of-chunk ``pred`` and
         the cumulative ``step``; a (C_in,) sample gets the last row only.
-        A pushed session's parked tenant bank is made resident first."""
+        A pushed session's parked tenant bank is made resident first.
+        On a card each tick's outputs are copied back through the service's
+        page-locked staging buffer; the returned arrays are copies, never
+        views of it, so they stay as they are when later pushes refill it."""
         self.calls += 1
         with self.tracer.call_scope(self.calls):
             return self._push_audio(chunks)
@@ -1058,29 +1091,39 @@ class StreamSessionService(SlotGridService):
                                                 out[..., cut[1]:])
                         if self.device_counters:
                             lt = torch.from_numpy(tick_lens).to(self.device)
-                with tr.span("readback", cat="tcn") as sp:
+                with tr.span("readback", cat="tcn",
+                             pinned=self._staging is not None
+                             and self._staging.pinned) as sp:
                     # the occupancy reduces the uploaded lengths on the
                     # device; its copy is queued ahead of the outputs'
-                    # blocking copies on the same stream, so it adds no
-                    # wait of its own
+                    # copies on the same stream, so it adds no wait of
+                    # its own
                     occ = occupancy_stats(lt, t_pad).to(
                         "cpu", non_blocking=True) \
                         if self.device_counters else None
-                    emb, logits, tlogits = (emb.cpu().numpy(),
-                                            logits.cpu().numpy(),
-                                            tlogits.cpu().numpy())
+                    if self._staging is None:
+                        emb, logits, tlogits = (emb.cpu().numpy(),
+                                                logits.cpu().numpy(),
+                                                tlogits.cpu().numpy())
+                    else:  # views of the staging buffer, one wait
+                        emb, logits, tlogits = self._staging.fill(
+                            (emb, logits, tlogits))
                     sp.set(bytes=emb.nbytes + logits.nbytes + tlogits.nbytes
                            + (occ.nbytes if occ is not None else 0))
             self._record_dispatch(time.perf_counter() - t0, shape)
             if occ is not None:
                 self._ingest_occupancy(occ.numpy())
             with tr.span("tick.scatter", cat="tcn"):
+                # staged outputs are views of the buffer the next tick
+                # refills: a tick that another follows copies its slices
+                keep = self._staging is None or off + t_pad >= max_len
                 for sid in arrs:
                     n = min(max(lens[sid] - off, 0), t_pad)
                     if n:
                         s = slot_of[sid]
-                        pieces[sid].append(
-                            (emb[s, :n], logits[s, :n], tlogits[s, :n]))
+                        piece = (emb[s, :n], logits[s, :n], tlogits[s, :n])
+                        pieces[sid].append(piece if keep else
+                                           tuple(p.copy() for p in piece))
             off += t_pad
 
         with tr.span("push.results", cat="tcn"):

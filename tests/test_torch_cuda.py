@@ -530,6 +530,103 @@ def test_paged_bank_equals_dense_on_card(dev, max_ways):
 
 
 # ---------------------------------------------------------------------------
+# the readback through the page-locked staging buffer
+# ---------------------------------------------------------------------------
+
+def test_staging_buffer_is_pinned_and_holds_the_cpu_copys_bits(dev):
+    from repro_torch.utils.host import StagingBuffer
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(64, 33, 24, device=dev, generator=g)
+    t = torch.randn(64, 33, 256, device=dev, generator=g)[..., :250]
+    st = StagingBuffer(pinned=True)
+    for _ in range(2):
+        got = st.fill([x, t])
+        assert st._buf.is_pinned() and st.allocs == 1
+        for a, b in zip(got, (x, t)):
+            assert np.array_equal(a, b.cpu().numpy())
+    st.release()
+    assert st.nbytes == 0 and st._buf is None
+
+
+def _readback_services(dev, paged):
+    """Two chameleon-tcn services with the same weights, 8 sessions over 4
+    tenants of up to 250 ways (the paged table 256 wide): the first stages
+    its readback (the card's default), the second reads back directly."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_tcn_bundle
+
+    bundle = build_tcn_bundle(get_config("chameleon-tcn"), dev)
+    params = bundle.init(torch.Generator().manual_seed(4))
+    params["fc"]["w"] = torch.randn(
+        params["fc"]["w"].shape, generator=torch.Generator().manual_seed(5)
+    ).to(dev)
+    svcs = [StreamSessionService(bundle, params, n_slots=8, max_tenants=4,
+                                 max_ways=250, paged_bank=paged,
+                                 bank_block_ways=16, t_chunk=64)
+            for _ in range(2)]
+    svcs[1]._staging = None  # each output's own .cpu()
+    return svcs
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_staged_readback_equals_cpu_readback_on_card(dev, paged):
+    """Pushes of 100 steps (ticks of 64 and 64) through the page-locked
+    buffer return the direct ``.cpu()`` readback's bits, dense and paged
+    (the paged tenant logits a 250-of-256 slice); one allocation, pinned;
+    a push's results stay as they were after later pushes; and a traced
+    push copies to pinned memory only."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(7)
+    svcs = _readback_services(dev, paged)
+    sids = [[s.open_session(tenant=i % 4) for i in range(8)] for s in svcs]
+    for t, n in enumerate((40, 5, 1)):
+        for _ in range(n):
+            e = rng.normal(size=(3, 64)).astype(np.float32)
+            for s, ss in zip(svcs, sids):
+                s.enroll_shots(ss[t], e, embedded=True)
+    push = lambda s, ss, x: s.push_audio(
+        {sid: x[i] for i, sid in enumerate(ss)})
+    outs = []
+    for _ in range(3):
+        x = rng.normal(size=(8, 100, 1)).astype(np.float32)
+        outs.append([push(s, ss, x) for s, ss in zip(svcs, sids)])
+        if len(outs) == 1:
+            kept = {sid: {k: None if r[k] is None else r[k].copy()
+                          for k in ("emb", "logits", "tenant_logits")}
+                    for sid, r in outs[0][0].items()}
+    for staged, direct in outs:
+        for sp, sd in zip(*sids):
+            for key in ("emb", "logits", "tenant_logits"):
+                a, b = staged[sp][key], direct[sd][key]
+                assert (a is None) == (b is None), key
+                if a is not None:
+                    assert np.array_equal(a, b), key
+    for sid, r in outs[0][0].items():
+        for key, v in kept[sid].items():
+            if v is not None:
+                assert np.array_equal(r[key], v), key
+    assert outs[0][0][sids[0][0]]["tenant_logits"].shape == (100, 250)
+    st = svcs[0]._staging
+    assert st.pinned and st._buf.is_pinned()
+    m = svcs[0].metrics()
+    assert m["readback_staging_allocs_total"][0]["value"] == 1
+    assert m["readback_staging_bytes"][0]["value"] == st.nbytes > 0
+    x = rng.normal(size=(8, 64, 1)).astype(np.float32)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        push(svcs[0], sids[0], x)
+        torch.cuda.synchronize()
+        time.sleep(0.05)  # lets the profiler collect the device records
+    d2h = [e.key for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and "DtoH" in e.key]
+    assert d2h and all("Pinned" in k for k in d2h), d2h
+
+
+# ---------------------------------------------------------------------------
 # serving on the card: the plane, spill/restore, TCNStreamServer
 # ---------------------------------------------------------------------------
 
